@@ -12,16 +12,27 @@ printing a result:
    the egocentric-window gather over every direction x pose on random grids,
    and on DoorKey-8x8 states at B=4096 after a random walk (with the whole
    observation checked against the CPU), plus a self-check that the compare
-   catches a single flipped bit;
-4. drive the main path: ``make_vec("MiniGrid-DoorKey-8x8-v0", 4096,
+   catches a single flipped bit; the fused step on DoorKey-8x8 at B=4096
+   after a random walk (every action, some agents carrying the key), on a
+   batch whose small ``max_steps`` sends most lanes to regeneration, on
+   Empty-5x5 (the view runs past the grid; half the agents face the goal),
+   Empty-Random-6x6 and Empty-16x16, every output compared (grid, agent
+   plane, image, reward bits, flags, next key, step index), plus the
+   flipped-bit self-check on the image and on the grid;
+4. drive each main path with every kernel's launch count zeroed just before
+   and read just after: ``make_vec("MiniGrid-DoorKey-8x8-v0", 4096,
    reset_strategy="pooled", pool_refill=64)`` through the bench loop of
    ``minigrid_tpu_torch.tools.bench`` (bulk refill every 8 steps) past the
-   first truncation wave, with every kernel's launch count zeroed just before
-   and read just after; then the same program at B=16 on the card and on the
-   CPU, which must agree bitwise step by step and in the final state;
-5. time the kernel, its plain version and a one-call library yardstick
-   (CUDA events over CUDA-graph replays, median), compute the kernel's bound,
-   and time the port's env-steps/s.
+   first truncation wave, then the same program at B=16 on the card and on
+   the CPU, which must agree bitwise step by step and in the final state;
+   then ``FusedVectorEnv(make("MiniGrid-DoorKey-8x8-v0"), 4096)`` for 648
+   steps (one ``fused_step`` launch a step, one ``obs_gather`` launch at
+   reset, every env regenerated at least once), and the same fused program
+   at B=16 on the card and on the CPU, bitwise;
+5. time each kernel, its plain version and, where one PyTorch call computes
+   the same function, that call (CUDA events over CUDA-graph replays,
+   median), compute each kernel's bound, and time both engines end to end
+   with the actions of each run drawn before its timer starts.
 
 It prints one JSON line of kernel records, then the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it,
@@ -130,15 +141,16 @@ def check_gather_sweep(dev, obs_gather) -> int:
     return worst
 
 
-def doorkey_walk_states(dev, num_envs: int, steps: int = 24):
-    """DoorKey-8x8 levels after a random walk (agents scattered over every
-    direction, some carrying the key), on ``dev``."""
+def doorkey_walk_states(dev, num_envs: int, steps: int = 24, env_id: str = ENV_ID,
+                        seed: int = 20260820, **overrides):
+    """DoorKey-8x8 levels (or ``env_id``'s) after a random walk (agents
+    scattered over every direction, some carrying the key), on ``dev``."""
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
 
-    env = minigrid_tpu_torch.make(ENV_ID)
+    env = minigrid_tpu_torch.make(env_id, **overrides)
     params = env.default_params
-    key = rng.PRNGKey(20260820, dev)
+    key = rng.PRNGKey(seed, dev)
     k_gen, k_act = rng.split(key).unbind(0)
     state = env.generate(rng.split(k_gen, num_envs), params, dev)
     for k in rng.split(k_act, steps):
@@ -178,6 +190,109 @@ def check_gather_doorkey(dev, obs_gather) -> tuple[int, dict]:
     log("  full observation (gather, occlusion, overlay, encode): card == CPU")
     return max_abs_err(got, want), {"grid": st.grid, "pos": st.agent_pos,
                                     "dir": st.agent_dir}
+
+
+FUSED_OUTPUTS = ("grid", "agent", "image", "reward", "terminated", "truncated",
+                 "key", "t")
+
+
+def fused_case(dev, env_id: str, walk: int, seed: int, max_steps: int | None = None,
+               aim_at_goal: bool = False, **overrides):
+    """Fused-step inputs on ``dev`` at B=4096: ``env_id`` levels after a
+    random walk, actions over all eight, a key and a step index.
+    ``max_steps`` overrides the spec's limit and spreads the step counts
+    over [0, 3 * max_steps), so most lanes finish; ``aim_at_goal`` puts half
+    the agents west of the goal facing it."""
+    import dataclasses
+
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.ops.fused_step import A_CNT, A_DIR, A_X, A_Y, fused_spec, \
+        planes_from_states
+
+    env, params, st = doorkey_walk_states(dev, NUM_ENVS, walk, env_id, seed, **overrides)
+    planes = planes_from_states(st)
+    spec = fused_spec(env, params)
+    agent = planes["agent"].clone()
+    k_act, k_cnt, k_step = rng.split(rng.PRNGKey(seed + 1, dev), 3).unbind(0)
+    if max_steps is not None:
+        spec = dataclasses.replace(spec, max_steps=max_steps)
+        agent[:, A_CNT] = rng.randint(k_cnt, (NUM_ENVS,), 0, 3 * max_steps)
+    if aim_at_goal:
+        half = NUM_ENVS // 2
+        agent[:half, A_X] = spec.width - 3
+        agent[:half, A_Y] = spec.height - 2
+        agent[:half, A_DIR] = 0
+    action = rng.randint(k_act, (NUM_ENVS,), 0, 8)
+    t = torch.zeros((), dtype=torch.int32, device=dev) + seed % 1000
+    return (planes["grid"], agent, action, rng.fold_in(k_step, 0), t), spec
+
+
+def compare_fused(got, want, where: str) -> int:
+    """Every output bitwise; returns the largest |kernel - plain| (0 when
+    equal), the reward compared as bits."""
+    worst = 0
+    for name, g, w in zip(FUSED_OUTPUTS, got, want):
+        if w.dtype == torch.float32:
+            bad = mismatches(g.view(torch.int32), w.view(torch.int32))
+            err = float((g - w).abs().max()) if g.numel() else 0.0
+        else:
+            bad = mismatches(g, w)
+            err = max_abs_err(g, w)
+        if bad:
+            raise AssertionError(f"fused_step kernel != plain on {where}: {name} "
+                                 f"differs in {bad} entries")
+        worst = max(worst, err)
+    return worst
+
+
+def check_fused_kernel(dev, fused_step) -> tuple[float, list]:
+    """The fused step kernel against its plain version on five batches;
+    returns (max error, [(case, inputs, spec)] of the two DoorKey-8x8
+    batches, for timing)."""
+    cases = [
+        ("DoorKey-8x8 after a 24-step walk", dict(env_id=ENV_ID, walk=24, seed=1)),
+        ("DoorKey-8x8, max_steps 12", dict(env_id=ENV_ID, walk=24, seed=2, max_steps=12)),
+        ("Empty-5x5, half facing the goal",
+         dict(env_id="MiniGrid-Empty-5x5-v0", walk=6, seed=3, max_steps=20,
+              aim_at_goal=True)),
+        ("Empty-Random-6x6, max_steps 10",
+         dict(env_id="MiniGrid-Empty-Random-6x6-v0", walk=8, seed=4, max_steps=10)),
+        ("Empty-16x16", dict(env_id="MiniGrid-Empty-16x16-v0", walk=40, seed=5)),
+    ]
+    worst, main, timed = 0.0, None, []
+    for where, kw in cases:
+        args, spec = fused_case(dev, **kw)
+        if kw["env_id"] == ENV_ID:
+            timed.append((where, args, spec))
+        got = fused_step.fused_step(*args, spec)
+        want = fused_step.fused_step_plain(*args, spec)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_fused(got, want, where))
+        done = int((want[4] | want[5]).sum())
+        goals = int((want[3] != 0).sum())
+        carrying = int((args[1][:, 4] != 1).sum())
+        actions = torch.bincount(args[2].long(), minlength=8).tolist()
+        log(f"  fused_step {where}, B={NUM_ENVS} {spec.width}x{spec.height} "
+            f"V={spec.view}: bitwise equal; {done} lanes regenerated, {goals} "
+            f"reached the goal, {carrying} carrying, actions {actions}")
+        if main is None:
+            main = (args, spec, want)
+            if min(actions) == 0 or carrying == 0:
+                raise AssertionError("the DoorKey batch misses an action or a carrier")
+        if where.startswith("DoorKey-8x8, max") and done < NUM_ENVS // 2:
+            raise AssertionError(f"only {done} lanes regenerated")
+        if where.startswith("Empty-5x5") and goals == 0:
+            raise AssertionError("no lane reached the goal")
+    args, spec, want = main
+    got = fused_step.fused_step(*args, spec)
+    torch.cuda.synchronize()
+    for i, name in ((2, "image"), (0, "grid")):
+        flipped = got[i].clone()
+        flipped.view(-1)[54321 % flipped.numel()] ^= 1
+        if mismatches(flipped, want[i]) != 1:
+            raise AssertionError(f"the fused compare missed a flipped bit in the {name}")
+    log("  fused_step flipped-bit self-check caught on the image and the grid")
+    return worst, timed
 
 
 # -- phase 4: the main path -----------------------------------------------------
@@ -283,6 +398,100 @@ def card_matches_cpu(dev) -> None:
     log(f"  goal reward: card == CPU bitwise over {count.numel()} (step, limit) pairs")
 
 
+def drive_fused_path(dev, counters: dict) -> dict:
+    """``FusedVectorEnv`` at full width for MAIN_STEPS steps through the
+    bench's fused loop, counts zeroed just before and read just after;
+    checks what comes out."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
+    from minigrid_tpu_torch.tools import bench
+
+    env = minigrid_tpu_torch.make(ENV_ID)
+    fv = FusedVectorEnv(env, NUM_ENVS, device=dev)
+    actions = bench.draw_actions(rng.PRNGKey(3, dev), MAIN_STEPS, NUM_ENVS,
+                                 env.num_actions)
+    ended = torch.zeros((NUM_ENVS,), dtype=torch.bool, device=dev)
+    last = {}
+
+    def keep(obs, reward, term, trunc):
+        ended.logical_or_(term | trunc)
+        last.update(obs=obs, reward=reward)
+
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.LAUNCHES = 0
+    t0 = time.perf_counter()
+    acc, fs = bench.run_fused(fv, rng.PRNGKey(4, dev), actions, on_step=keep)
+    acc = float(acc)
+    seconds = time.perf_counter() - t0
+    launches = {name: module.LAUNCHES for name, module in counters.items()}
+
+    if launches["fused_step"] != MAIN_STEPS or launches["obs_gather"] != 1:
+        raise AssertionError(f"fused path launches {launches}: expected "
+                             f"{MAIN_STEPS} fused_step and 1 obs_gather (reset)")
+    image, direction = last["obs"]["image"], last["obs"]["direction"]
+    if image.shape != (NUM_ENVS, VIEW, VIEW, 3) or image.dtype != torch.uint8:
+        raise AssertionError(f"fused obs image {tuple(image.shape)} {image.dtype}")
+    if not (bool((image[..., 0] <= 33).all()) and bool((image[..., 1] <= 10).all())
+            and bool((image[..., 2] <= 2).all())):
+        raise AssertionError("fused image fields out of range")
+    if not bool(((direction >= 0) & (direction < 4)).all()):
+        raise AssertionError("fused direction out of range")
+    reward = last["reward"]
+    if not (bool(torch.isfinite(reward).all()) and bool((reward >= 0).all())
+            and bool((reward <= 1).all())):
+        raise AssertionError("fused reward out of [0, 1]")
+    ag = fs["agent"]
+    w, h = fv.spec.width, fv.spec.height
+    if not (bool(((ag[:, 0] > 0) & (ag[:, 0] < w - 1) & (ag[:, 1] > 0)
+                  & (ag[:, 1] < h - 1)).all())
+            and bool((ag[:, 3] < env.max_steps).all())):
+        raise AssertionError("fused agent plane out of range")
+    if not bool(ended.all()):  # every env truncates by step 640
+        raise AssertionError(f"{int((~ended).sum())} envs never regenerated")
+    if int(fs["t"]) != MAIN_STEPS or not torch.isfinite(torch.tensor(acc)):
+        raise AssertionError(f"fused t {int(fs['t'])}, checksum {acc}")
+    log(f"  {ENV_ID} B={NUM_ENVS} FusedVectorEnv: {MAIN_STEPS} steps in "
+        f"{seconds:.3f} s (first run, unwarmed), launches {launches}, every env "
+        f"regenerated, checksum {acc}")
+    return {"launches": launches}
+
+
+def fused_card_matches_cpu(dev) -> None:
+    """The fused program at B=16 on the card and on the CPU (max_steps=9,
+    so lanes finish and regenerate): per-step obs, reward bits, flags and
+    the final planes agree bitwise."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
+    from minigrid_tpu_torch.tools import bench
+
+    env = minigrid_tpu_torch.make(ENV_ID, max_steps=9)
+    actions = bench.draw_actions(rng.PRNGKey(8, "cpu"), 40, 16, env.num_actions)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        steps = []
+        _, fs = bench.run_fused(
+            FusedVectorEnv(env, 16, device=d), rng.PRNGKey(7, d), actions.to(d),
+            on_step=lambda obs, r, te, tr: steps.append(
+                [obs["image"].cpu(), obs["direction"].cpu(), obs["mission"].cpu(),
+                 r.cpu().view(torch.int32), te.cpu(), tr.cpu()]))
+        runs[d.type] = (steps, {k: v.cpu() for k, v in fs.items()})
+    (g_steps, g_fs), (c_steps, c_fs) = runs["cuda"], runs["cpu"]
+    ends = 0
+    for t, (g, c) in enumerate(zip(g_steps, c_steps)):
+        for name, a, b in zip(("image", "direction", "mission", "reward bits",
+                               "terminated", "truncated"), g, c):
+            if mismatches(a, b):
+                raise AssertionError(f"fused B=16 step {t}: {name} differs card vs CPU")
+        ends += int((c[4] | c[5]).sum())
+    for k in c_fs:
+        if mismatches(g_fs[k], c_fs[k]):
+            raise AssertionError(f"fused B=16 final {k} differs card vs CPU")
+    log(f"  fused B=16, 40 steps: card == CPU bitwise ({ends} episode ends)")
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -329,6 +538,45 @@ def time_gather(obs_gather, inputs: dict) -> dict:
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms}
 
 
+def fused_bound_ms(args: tuple, spec, out: tuple) -> tuple[float, str, dict]:
+    """Least time for the fused step on these inputs: the larger of the
+    bytes it must move and its operations over the int32 rate.
+
+    Bytes: each input read once (the agent row and action; the grid of a
+    lane that goes on, only the front cell of one that finishes; the key and
+    step index once) and each output written once.  Operations, counted from
+    the kernel's code per lane: about 60 for the step and the action tree;
+    per view cell about 27 (coordinates, bounds, address, transparency,
+    select, unpack); 4 per step of the two occlusion sweeps (2 (V-1) per
+    row); for a finished lane 12 per regenerated cell and, where its
+    generator draws, 5 threefry hashes; and 3 hashes per step in all.  A
+    hash is 20 rounds of add, rotate and xor plus 5 key injections: 80."""
+    from minigrid_tpu_torch.ops.fused_step import GEN_EMPTY
+
+    grid, agent, action, key, t = args
+    n, w, h = grid.shape
+    v = spec.view
+    done = int((out[4] | out[5]).sum())
+    reads = n * (agent.shape[1] * 4 + 4) + (n - done) * w * h * 4 + done * 4 + 16 + 4
+    writes = n * (w * h * 4 + agent.shape[1] * 4 + v * v * 3 + 4 + 1 + 1) + 16 + 4
+    hashes = 3 + (5 * done if spec.generator != GEN_EMPTY else 0)
+    ops = (n * (60 + v * v * 27 + 8 * v * (v - 1)) + done * w * h * 12
+           + hashes * 80)
+    t_bytes = (reads + writes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), bound_by, {"bytes": reads + writes, "int_ops": ops,
+                                           "finished_lanes": done}
+
+
+def time_fused(fused_step, args: tuple, spec) -> dict:
+    """Kernel and plain device times; no single PyTorch call computes the
+    fused step, so there is no library yardstick."""
+    kernel_ms = gpu_time_ms(lambda: fused_step.fused_step(*args, spec))
+    plain_ms = gpu_time_ms(lambda: fused_step.fused_step_plain(*args, spec))
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a card",
@@ -343,7 +591,7 @@ def main() -> int:
     log(f"  {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
-    from minigrid_tpu_torch.ops import _build, obs_gather
+    from minigrid_tpu_torch.ops import _build, fused_step, obs_gather
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -354,16 +602,20 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  [{name}] {line.strip()}")
-    counters = {"obs_gather": obs_gather}
+    counters = {"obs_gather": obs_gather, "fused_step": fused_step}
 
     log("phase 3: kernels against their plain versions on the card")
     err = check_gather_sweep(dev, obs_gather)
     err_dk, inputs = check_gather_doorkey(dev, obs_gather)
     err = max(err, err_dk)
+    fused_err, fused_batches = check_fused_kernel(dev, fused_step)
+    _, fused_args, fused_spec = fused_batches[0]
 
-    log("phase 4: the main path")
+    log("phase 4: the main paths")
     main = drive_main_path(dev, counters)
     card_matches_cpu(dev)
+    fused_main = drive_fused_path(dev, counters)
+    fused_card_matches_cpu(dev)
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)
@@ -373,14 +625,42 @@ def main() -> int:
         f"{times['library_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
         f"({bound_by}; {work}) [{card}]")
 
+    fused_times = time_fused(fused_step, fused_args, fused_spec)
+    fused_out = fused_step.fused_step_plain(*fused_args, fused_spec)
+    fused_bound, fused_bound_by, fused_work = fused_bound_ms(fused_args, fused_spec,
+                                                             fused_out)
+    log(f"  fused_step B={NUM_ENVS} 8x8 V={VIEW}: kernel "
+        f"{fused_times['ms'] * 1e3:.2f} us, plain {fused_times['plain_ms'] * 1e3:.2f} us, "
+        f"no library call, bound {fused_bound * 1e3:.3f} us ({fused_bound_by}; "
+        f"{fused_work}) [{card}]")
+    where, args, spec = fused_batches[1]  # most lanes regenerate
+    regen_ms = gpu_time_ms(lambda: fused_step.fused_step(*args, spec))
+    regen_bound = fused_bound_ms(args, spec, fused_step.fused_step_plain(*args, spec))
+    log(f"  fused_step on {where}: kernel {regen_ms * 1e3:.2f} us, bound "
+        f"{regen_bound[0] * 1e3:.3f} us ({regen_bound[1]}; {regen_bound[2]}) [{card}]")
+
     from minigrid_tpu_torch.tools import bench
 
     venv = bench.make_venv(dev)
     rate = bench.measure(venv, MAIN_STEPS)
-    log(f"  port {ENV_ID} B={NUM_ENVS} pooled {POOL_REFILL}/{REFILL_PERIOD}: "
-        f"{rate['env_steps_per_sec']:.0f} env-steps/s, "
+    log(f"  port {ENV_ID} B={NUM_ENVS} pooled {POOL_REFILL}/{REFILL_PERIOD}, actions "
+        f"drawn every step: {rate['env_steps_per_sec']:.0f} env-steps/s, "
         f"{rate['us_per_step']:.1f} us/step over {MAIN_STEPS} steps, "
         f"fresh fraction {rate['fresh_frac']} [{card}]")
+    # like with like: both engines read their actions from one [T, B] draw
+    # made before the timer starts, and fold the same checksum every step
+    pooled = bench.measure(venv, MAIN_STEPS, predrawn=True)
+    fused_rate = bench.measure_fused(bench.make_fused(dev), MAIN_STEPS)
+    fused_prof = bench.profile_fused(bench.make_fused(dev), 64)
+    for name, r in (("pooled", pooled), ("fused", fused_rate)):
+        log(f"  port {ENV_ID} B={NUM_ENVS} {name}, predrawn actions: "
+            f"{r['env_steps_per_sec']:.0f} env-steps/s, {r['us_per_step']:.1f} us/step "
+            f"over {MAIN_STEPS} steps, fresh fraction {r['fresh_frac']} [{card}]")
+    log(f"  fused path under torch.profiler, 64 steps: "
+        f"{fused_prof['launches_per_step']:.2f} launches/step, device busy "
+        f"{fused_prof['device_busy_us_per_step']:.1f} us/step of "
+        f"{fused_prof['wall_us_per_step']:.1f} us/step wall, idle share "
+        f"{fused_prof['device_idle_share']:.3f} [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -395,6 +675,18 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": times["library_ms"],
+    }, {
+        "name": "fused_step",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/fused_step.cu",
+        "replaces": "minigrid_tpu/ops/fused_step.py:75",
+        "launches": fused_main["launches"]["fused_step"],
+        "max_abs_err": fused_err,
+        "ms": fused_times["ms"],
+        "plain_ms": fused_times["plain_ms"],
+        "bound_ms": fused_bound,
+        "bound_by": fused_bound_by,
+        "library_ms": fused_times["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

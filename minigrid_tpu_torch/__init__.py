@@ -2,14 +2,20 @@
 
 The port keeps the JAX package's module layout and semantics: packed int32
 cell words, a branchless batched step, the egocentric observation (its window
-gather a hand-written CUDA kernel), and the vectorized auto-reset engine.
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+gather a hand-written CUDA kernel), the vectorized auto-reset engine, and
+``FusedVectorEnv``, whose whole step (auto-reset and observation included) is
+one hand-written CUDA kernel.  Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
 
     import minigrid_tpu_torch as mgt
     from minigrid_tpu_torch.core import rng
 
     venv = mgt.make_vec("MiniGrid-DoorKey-8x8-v0", 4096)
     obs, state = venv.reset(rng.PRNGKey(0))
+
+    fused = mgt.FusedVectorEnv(mgt.make("MiniGrid-DoorKey-8x8-v0"), 4096)
+    obs, fs = fused.reset(rng.PRNGKey(0))
+    obs, fs, reward, terminated, truncated, info = fused.step(fs, actions)
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.state import EnvParams, EnvState
 from minigrid_tpu_torch.core.step import NUM_ACTIONS, Actions
+from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
 from minigrid_tpu_torch.parallel.vector import VectorEnv
 from minigrid_tpu_torch.registry import make, make_vec, register, registered_ids
 
@@ -27,6 +34,7 @@ __all__ = [
     "Env",
     "EnvParams",
     "EnvState",
+    "FusedVectorEnv",
     "NUM_ACTIONS",
     "VectorEnv",
     "make",

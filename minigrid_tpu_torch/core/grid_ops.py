@@ -133,3 +133,68 @@ def write_word(grid: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 def is_empty(grid: torch.Tensor) -> torch.Tensor:
     """Mask of cells that encode None (type empty)."""
     return (grid & 0xFF) == _EMPTY_T
+
+
+def rect_mask(width: int, height: int, top: tuple, size: tuple,
+              device) -> torch.Tensor:
+    """(W, H) mask of the place_obj search rectangle: top clamped at 0,
+    extent clamped to the grid."""
+    xs, ys = coords(width, height, device)
+    tx, ty = max(int(top[0]), 0), max(int(top[1]), 0)
+    return ((xs >= tx) & (xs < min(tx + int(size[0]), width))
+            & (ys >= ty) & (ys < min(ty + int(size[1]), height)))
+
+
+def sample_cell(keys: torch.Tensor, mask: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uniform draw over the True cells of each (W, H) mask of a batch
+    ``[B, W, H]``, one key of ``keys`` (int64[B, 2]) per grid.
+
+    Returns (pos int32[B, 2], ok bool[B]).  ``ok`` is False where the mask is
+    empty, and pos is then (0, 0).  The draw is the JAX package's
+    count-and-select: ``r = randint(0, max(total, 1))`` over the running count
+    of True cells, and the first cell whose count exceeds r."""
+    from minigrid_tpu_torch.core import rng  # rng -> state -> grid_ops
+
+    b, w, h = mask.shape
+    counts = torch.cumsum(mask.reshape(b, w * h).to(torch.int32), dim=1,
+                          dtype=torch.int32)
+    total = counts[:, -1]
+    ok = total > 0
+    r = rng.randint(keys, (), 0, torch.clamp(total, min=1))
+    # counts is non-decreasing: the first index with counts > r is the
+    # number of indices with counts <= r
+    idx = (counts <= r[:, None]).sum(dim=1, dtype=torch.int32)
+    pos = torch.stack([idx // h, idx % h], dim=1)
+    return torch.where(ok[:, None], pos, torch.zeros_like(pos)), ok
+
+
+def place_obj(keys: torch.Tensor, grid: torch.Tensor, triple,
+              agent_pos: torch.Tensor | None = None, top: tuple = (0, 0),
+              size: tuple | None = None,
+              reject_mask: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """place_obj as one masked draw per grid of ``grid`` ``[B, W, H]``.
+
+    Placement is uniform over cells that are empty, not the agent's
+    (``agent_pos`` int32[B, 2]), inside the (top, size) rectangle and not in
+    ``reject_mask``.  Returns (grid', pos int32[B, 2], ok bool[B]).
+    ``triple=None`` reserves a cell without writing (the place_agent
+    path)."""
+    _, w, h = grid.shape
+    if size is None:
+        size = (w, h)
+    mask = is_empty(grid) & rect_mask(w, h, top, size, grid.device)
+    if agent_pos is not None:
+        xs, ys = coords(w, h, grid.device)
+        mask = mask & ~((xs == _per_grid(agent_pos[:, 0]))
+                        & (ys == _per_grid(agent_pos[:, 1])))
+    if reject_mask is not None:
+        mask = mask & ~reject_mask
+    pos, ok = sample_cell(keys, mask)
+    if triple is not None:
+        xs, ys = coords(w, h, grid.device)
+        write = ((xs == _per_grid(pos[:, 0])) & (ys == _per_grid(pos[:, 1]))
+                 & _per_grid(ok))
+        grid = set_where(grid, write, triple)
+    return grid, pos, ok

@@ -7,6 +7,8 @@ reproduces the calls they make, bit for bit, as jax 0.9 computes them with
 
 * ``split`` is ``_threefry_split_foldlike``: key i of ``split(k, n)`` is the
   threefry hash of the counter pair (0, i) under k;
+* ``fold_in(k, d)`` is ``threefry_2x32(k, threefry_seed(d))``, the hash of
+  the pair (0, d), so ``fold_in(k, 1) == split(k)[1]``;
 * 32-bit ``bits`` is ``bits1 ^ bits2`` of ``_threefry_random_bits_partitionable``
   over the same iota counters;
 * ``randint`` is ``jax.random._randint``: two bit draws from ``split(key)``,
@@ -73,6 +75,21 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``."""
     b1, b2 = _hash_iota(keys, (num,))
     return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the threefry hash of the counter pair
+    (0, data) under each key, ``[..., 2]`` -> ``[..., 2]``.  ``data`` is an
+    int in [0, 2^32) or an int tensor of such values that broadcasts against
+    the keys' leading dims.  ``fold_in(k, 1) == split(k)[1]``."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(device=keys.device, dtype=torch.int64)
+    elif not 0 <= int(data) <= _M32:
+        raise ValueError(f"fold_in data must lie in [0, 2^32), got {data}")
+    else:
+        data = torch.full((), int(data), dtype=torch.int64, device=keys.device)
+    b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
 def bits(keys: torch.Tensor, shape: tuple = ()) -> torch.Tensor:

@@ -5,6 +5,7 @@ shared library with a plain C interface, loaded with ``ctypes``.  A library is
 built once per content hash (its source, the headers beside it and the
 flags), at first use, into ``minigrid_tpu_torch/_build/``.  All sources not yet
 built compile together, one ``nvcc`` process each.  A failed build raises.
+``check_tensor`` is the wrappers' check of what they pass to a C entry.
 """
 
 from __future__ import annotations
@@ -86,6 +87,19 @@ def build_all() -> dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` is what a kernel's C entry takes: on ``device``,
+    of ``dtype`` and ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the kernel's inputs on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 @functools.cache

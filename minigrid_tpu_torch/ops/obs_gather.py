@@ -22,6 +22,7 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.grid_ops import pack_word
 from minigrid_tpu_torch.core.obs import view_world_coords
+from minigrid_tpu_torch.ops._build import check_tensor
 
 WALL_PACKED = pack_word(C.WALL_TRIPLE)
 
@@ -50,17 +51,6 @@ def _kernel():
     return fn
 
 
-def _check(t: torch.Tensor, name: str, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, grid on {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
                 agent_dir: torch.Tensor, view_size: int) -> torch.Tensor:
     """Rotated egocentric window of every env, packed:
@@ -76,9 +66,9 @@ def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
     v = int(view_size)
     if v < 1:
         raise ValueError(f"view_size must be positive, got {v}")
-    _check(grid, "grid", (b, w, h), grid.device)
-    _check(agent_pos, "agent_pos", (b, 2), grid.device)
-    _check(agent_dir, "agent_dir", (b,), grid.device)
+    for t, name, shape in ((grid, "grid", (b, w, h)), (agent_pos, "agent_pos", (b, 2)),
+                           (agent_dir, "agent_dir", (b,))):
+        check_tensor(t, name, torch.int32, shape, grid.device)
     out = torch.empty((b, v, v), dtype=torch.int32, device=grid.device)
     if b == 0:
         return out

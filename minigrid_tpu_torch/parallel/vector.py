@@ -69,21 +69,25 @@ class VectorEnv:
 
     ``step`` auto-resets: the returned obs and state of a finished env belong
     to its new episode, while reward/terminated/truncated report the step that
-    ended the old one.
+    ended the old one.  With ``auto_reset=False`` it returns the stepped
+    states as they are, finished ones included, and the state is a plain
+    ``EnvState`` batch whatever the reset strategy.
     """
 
     def __init__(self, env: Env, num_envs: int, params: EnvParams | None = None,
-                 reset_strategy: str | None = None,
+                 auto_reset: bool = True, reset_strategy: str | None = None,
                  pool_refill: int | None = None, device=None):
         self.env = env
         self.num_envs = num_envs
         self.params = params if params is not None else env.default_params
         self.device = resolve_device(device)
+        self.auto_reset = auto_reset
         reset_strategy = reset_strategy or "fused"
         if reset_strategy not in ("fused", "pooled"):
             raise NotImplementedError(
                 f"reset_strategy {reset_strategy!r} is not ported yet")
         self.reset_strategy = reset_strategy
+        self._pooled = reset_strategy == "pooled" and auto_reset
         self.pool_size = 2 * num_envs
         if pool_refill is None:
             target = min(2 * num_envs, max(16, num_envs // 16))
@@ -109,7 +113,7 @@ class VectorEnv:
     def reset(self, key: torch.Tensor):
         key = key.to(self.device)
         b = self.num_envs
-        if self.reset_strategy != "pooled":
+        if not self._pooled:
             envs = self._gen_many(rng.split(key, b))
             return self._obs(envs), envs
         _, k_gen, k_refill = rng.split(key, 3).unbind(0)
@@ -133,7 +137,12 @@ class VectorEnv:
         )
 
     def step(self, state, action: torch.Tensor):
-        if self.reset_strategy != "pooled":
+        if not self.auto_reset:
+            next_state, reward, terminated, truncated = self._step_envs(
+                state, action)
+            return (self._obs(next_state), next_state, reward, terminated,
+                    truncated, {})
+        if not self._pooled:
             next_state, reward, terminated, truncated = self._step_envs(
                 state, action)
             done = terminated | truncated

@@ -36,7 +36,7 @@ def make(id: str, **overrides: Any) -> Env:
     return spec.cls(**{**spec.kwargs, **overrides})
 
 
-def make_vec(id: str, num_envs: int, *, params=None,
+def make_vec(id: str, num_envs: int, *, params=None, auto_reset: bool = True,
              reset_strategy: str | None = None, pool_refill: int | None = None,
              device=None, **overrides: Any):
     """A ``VectorEnv`` of ``num_envs`` lockstep instances of the preset, on
@@ -45,8 +45,8 @@ def make_vec(id: str, num_envs: int, *, params=None,
     from minigrid_tpu_torch.parallel.vector import VectorEnv
 
     return VectorEnv(make(id, **overrides), num_envs, params,
-                     reset_strategy=reset_strategy, pool_refill=pool_refill,
-                     device=device)
+                     auto_reset=auto_reset, reset_strategy=reset_strategy,
+                     pool_refill=pool_refill, device=device)
 
 
 def registered_ids() -> list[str]:

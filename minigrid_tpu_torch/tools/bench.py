@@ -11,15 +11,24 @@ every 8 steps), random actions drawn from the threefry twin, and the symbolic
 * the timer stops after that scalar is fetched to the host;
 * the fresh fraction of served auto-resets is reported beside the rate.
 
+``--fused`` times the same envs, actions and checksum through
+``FusedVectorEnv`` instead, whose step is one kernel launch with the
+auto-reset (regeneration from the env's own generator) fused in.  With
+``--predrawn`` (always on with ``--fused``) the actions of the whole run come
+from one ``randint`` over ``[T, B]`` drawn before the timer starts, so the
+two engines compare like with like.
+
 Prints one JSON line.  Run on the card:
 
-    python -m minigrid_tpu_torch.tools.bench [--steps 4096]
-    python -m minigrid_tpu_torch.tools.bench --profile 64
+    python -m minigrid_tpu_torch.tools.bench [--steps 4096] [--predrawn]
+    python -m minigrid_tpu_torch.tools.bench --fused [--steps 4096]
+    python -m minigrid_tpu_torch.tools.bench [--fused] --profile 64
 
 ``--profile N`` traces N steady-state steps with ``torch.profiler`` instead
 and prints where the time goes: kernel launches per step, device busy time
-against wall time, the kernels that take the most device time, and each
-layer of the step run on its own (host-synced µs and launches per step).
+against wall time, the kernels that take the most device time, and (pooled
+engine) each layer of the step run on its own (host-synced µs and launches
+per step).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 import minigrid_tpu_torch
 from minigrid_tpu_torch.core import rng
+from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
 from minigrid_tpu_torch.parallel.vector import PooledState, VectorEnv
 
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
@@ -58,62 +68,134 @@ def make_venv(device=None) -> VectorEnv:
         device=device)
 
 
+def make_fused(device=None) -> FusedVectorEnv:
+    return FusedVectorEnv(minigrid_tpu_torch.make(ENV_ID), NUM_ENVS, device=device)
+
+
+def draw_actions(key: torch.Tensor, num_steps: int, num_envs: int,
+                 num_actions: int) -> torch.Tensor:
+    """The actions of a whole run, int32[T, B], in one ``randint``."""
+    return rng.randint(key, (num_steps, num_envs), 0, num_actions)
+
+
+def fold(acc: torch.Tensor, obs: dict, reward: torch.Tensor, term: torch.Tensor,
+         trunc: torch.Tensor) -> torch.Tensor:
+    """One step into the running checksum: the whole observation, the
+    rewards and the episode ends."""
+    chk = sum(leaf.to(torch.float32).sum() for leaf in obs.values())
+    return acc + (reward.sum() + chk + (term | trunc).sum().to(torch.float32))
+
+
 def run(venv: VectorEnv, key: torch.Tensor, num_steps: int,
-        refill_period: int = REFILL_PERIOD, on_step=None
-        ) -> tuple[torch.Tensor, PooledState]:
+        refill_period: int = REFILL_PERIOD, on_step=None,
+        actions: torch.Tensor | None = None) -> tuple[torch.Tensor, PooledState]:
     """Reset, then ``num_steps`` consume-only steps with a bulk refill every
     ``refill_period``.  Returns (running checksum scalar on the device,
     final state).  ``on_step(obs, reward, terminated, truncated)`` sees every
     step when given."""
     key, k_reset = rng.split(key.to(venv.device)).unbind(0)
     _, state = venv.reset(k_reset)
-    return loop(venv, state, key, num_steps, refill_period, on_step)
+    return loop(venv, state, key, num_steps, refill_period, on_step, actions)
 
 
 def loop(venv: VectorEnv, state: PooledState, key: torch.Tensor, num_steps: int,
-         refill_period: int = REFILL_PERIOD, on_step=None
-         ) -> tuple[torch.Tensor, PooledState]:
+         refill_period: int = REFILL_PERIOD, on_step=None,
+         actions: torch.Tensor | None = None) -> tuple[torch.Tensor, PooledState]:
     """The timed body of :func:`run`, from a given state: ``num_steps``
-    steps with actions drawn from ``split(key, num_steps)``."""
+    steps with actions drawn from ``split(key, num_steps)``, or read from
+    ``actions`` int32[T, B] when given."""
     if num_steps % refill_period:
         raise ValueError("num_steps must be a multiple of refill_period")
-    keys = rng.split(key, num_steps).view(
-        num_steps // refill_period, refill_period, 2)
+    keys = rng.split(key, num_steps)
     acc = torch.zeros((), dtype=torch.float32, device=venv.device)
-    for block in keys:
-        for k in block:
-            action = rng.randint(k, (venv.num_envs,), 0, venv.env.num_actions)
-            obs, state, reward, term, trunc, _ = venv.step_nofill(state, action)
-            chk = sum(leaf.to(torch.float32).sum() for leaf in obs.values())
-            acc += reward.sum() + chk + (term | trunc).sum().to(torch.float32)
-            if on_step is not None:
-                on_step(obs, reward, term, trunc)
-        state = venv.refill(state, refill_period)
+    for t in range(num_steps):
+        if actions is None:
+            action = rng.randint(keys[t], (venv.num_envs,), 0, venv.env.num_actions)
+        else:
+            action = actions[t]
+        obs, state, reward, term, trunc, _ = venv.step_nofill(state, action)
+        acc = fold(acc, obs, reward, term, trunc)
+        if on_step is not None:
+            on_step(obs, reward, term, trunc)
+        if (t + 1) % refill_period == 0:
+            state = venv.refill(state, refill_period)
     return acc, state
 
 
-def measure(venv: VectorEnv, num_steps: int, reps: int = 2) -> dict:
-    """Warm up, then time ``reps`` runs; the best one counts."""
-    float(run(venv, rng.PRNGKey(0, venv.device), 2 * REFILL_PERIOD)[0])
-    best, state = None, None
+def run_fused(fvenv: FusedVectorEnv, key: torch.Tensor, actions: torch.Tensor,
+              on_step=None) -> tuple[torch.Tensor, dict]:
+    """Reset, then one fused step per row of ``actions`` int32[T, B], with
+    the same checksum fold as :func:`loop`.  Returns (checksum, final
+    planes)."""
+    _, fs = fvenv.reset(key.to(fvenv.device))
+    return loop_fused(fvenv, fs, actions, on_step)
+
+
+def loop_fused(fvenv: FusedVectorEnv, fs: dict, actions: torch.Tensor,
+               on_step=None) -> tuple[torch.Tensor, dict]:
+    """The timed body of :func:`run_fused`, from given planes."""
+    acc = torch.zeros((), dtype=torch.float32, device=fvenv.device)
+    for action in actions:
+        obs, fs, reward, term, trunc, _ = fvenv.step(fs, action)
+        acc = fold(acc, obs, reward, term, trunc)
+        if on_step is not None:
+            on_step(obs, reward, term, trunc)
+    return acc, fs
+
+
+def _timed(fn, reps: int) -> tuple[float, object]:
+    """Best of ``reps`` host-timed runs of ``fn(i)``, which returns
+    (checksum, result): -> (seconds, the last result).  Each timer stops
+    after its checksum reaches the host."""
+    best, out = None, None
     for i in range(reps):
         t0 = time.perf_counter()
-        acc, state = run(venv, rng.PRNGKey(i + 1, venv.device), num_steps)
+        acc, out = fn(i)
         float(acc)  # host fetch: the run is over when this returns
         dt = time.perf_counter() - t0
         best = dt if best is None else min(best, dt)
+    return best, out
+
+
+def _rate(num_envs: int, num_steps: int, seconds: float) -> dict:
+    return {"env_steps_per_sec": num_envs * num_steps / seconds,
+            "us_per_step": seconds / num_steps * 1e6, "seconds": seconds,
+            "num_envs": num_envs, "num_steps": num_steps}
+
+
+def _predrawn(venv, num_steps: int, reps: int) -> list[torch.Tensor]:
+    """One ``[T, B]`` action draw per rep, made and synced before timing."""
+    out = [draw_actions(rng.PRNGKey(1000 + i, venv.device), num_steps,
+                        venv.num_envs, venv.env.num_actions) for i in range(reps)]
+    _sync(venv.device)
+    return out
+
+
+def measure(venv: VectorEnv, num_steps: int, reps: int = 2,
+            predrawn: bool = False) -> dict:
+    """Warm up, then time ``reps`` runs; the best one counts.  With
+    ``predrawn`` each run's actions are drawn before its timer starts."""
+    float(run(venv, rng.PRNGKey(0, venv.device), 2 * REFILL_PERIOD)[0])
+    actions = _predrawn(venv, num_steps, reps) if predrawn else [None] * reps
+    best, state = _timed(lambda i: run(venv, rng.PRNGKey(i + 1, venv.device),
+                                       num_steps, actions=actions[i]), reps)
     n_fresh, n_stale = int(state.n_fresh), int(state.n_stale)
     served = n_fresh + n_stale
-    return {
-        "env_steps_per_sec": venv.num_envs * num_steps / best,
-        "us_per_step": best / num_steps * 1e6,
-        "seconds": best,
-        "num_envs": venv.num_envs,
-        "num_steps": num_steps,
-        "n_fresh": n_fresh,
-        "n_stale": n_stale,
-        "fresh_frac": n_fresh / served if served else None,
-    }
+    return {**_rate(venv.num_envs, num_steps, best), "predrawn": predrawn,
+            "n_fresh": n_fresh, "n_stale": n_stale,
+            "fresh_frac": n_fresh / served if served else None}
+
+
+def measure_fused(fvenv: FusedVectorEnv, num_steps: int, reps: int = 2) -> dict:
+    """:func:`measure` for the fused engine, actions always predrawn.  Every
+    auto-reset there is a fresh level from the env's generator."""
+    warm = _predrawn(fvenv, 2 * REFILL_PERIOD, 1)[0]
+    float(run_fused(fvenv, rng.PRNGKey(0, fvenv.device), warm)[0])
+    actions = _predrawn(fvenv, num_steps, reps)
+    best, _ = _timed(lambda i: run_fused(fvenv, rng.PRNGKey(i + 1, fvenv.device),
+                                         actions[i]), reps)
+    return {**_rate(fvenv.num_envs, num_steps, best), "predrawn": True,
+            "fresh_frac": 1.0}
 
 
 def _sync(device: torch.device) -> None:
@@ -166,21 +248,15 @@ def _layers(venv: VectorEnv, state: PooledState, key: torch.Tensor,
     return out
 
 
-def profile(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
-    """Trace ``num_steps`` steady-state steps (reset and a warm-up block
-    outside the trace) and summarise the device's side of them."""
+def _trace(body, num_steps: int, top: int) -> dict:
+    """Run ``body()`` (``num_steps`` steps ending in a host fetch) under
+    ``torch.profiler`` and summarise the device's side of it."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
-    key = rng.PRNGKey(0, venv.device)
-    k_reset, k_warm, k_run = rng.split(key, 3).unbind(0)
-    _, state = venv.reset(k_reset)
-    acc, state = loop(venv, state, k_warm, 2 * REFILL_PERIOD)
-    float(acc)
     with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        acc, state = loop(venv, state, k_run, num_steps)
-        float(acc)
+        body()
         wall = time.perf_counter() - t0
     kernels, launches = [], _launches(prof)
     for e in prof.key_averages():
@@ -192,7 +268,6 @@ def profile(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
     kernels.sort(reverse=True)
     busy_us = sum(us for us, _, _ in kernels)
     return {
-        "num_envs": venv.num_envs,
         "num_steps": num_steps,
         "wall_us_per_step": wall / num_steps * 1e6,
         "device_busy_us_per_step": busy_us / num_steps,
@@ -202,8 +277,39 @@ def profile(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
         "top_kernels": [{"name": name[:120], "us_per_step": us / num_steps,
                          "calls_per_step": n / num_steps}
                         for us, n, name in kernels[:top]],
-        "layers": _layers(venv, state, k_run),
     }
+
+
+def profile(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
+    """Trace ``num_steps`` steady-state steps (reset and a warm-up block
+    outside the trace) and summarise the device's side of them."""
+    key = rng.PRNGKey(0, venv.device)
+    k_reset, k_warm, k_run = rng.split(key, 3).unbind(0)
+    _, state = venv.reset(k_reset)
+    acc, state = loop(venv, state, k_warm, 2 * REFILL_PERIOD)
+    float(acc)
+
+    def body():
+        nonlocal state
+        acc, state = loop(venv, state, k_run, num_steps)
+        float(acc)
+
+    out = _trace(body, num_steps, top)
+    return {"num_envs": venv.num_envs, **out,
+            "layers": _layers(venv, state, k_run)}
+
+
+def profile_fused(fvenv: FusedVectorEnv, num_steps: int, top: int = 15) -> dict:
+    """:func:`profile` for the fused engine: reset and a warm-up block
+    outside the trace, then ``num_steps`` predrawn steps traced."""
+    warm, actions = (_predrawn(fvenv, t, 1)[0] for t in (2 * REFILL_PERIOD, num_steps))
+    acc, fs = run_fused(fvenv, rng.PRNGKey(0, fvenv.device), warm)
+    float(acc)
+
+    def body():
+        float(loop_fused(fvenv, fs, actions)[0])
+
+    return {"num_envs": fvenv.num_envs, **_trace(body, num_steps, top)}
 
 
 def main(argv=None) -> None:
@@ -211,15 +317,26 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=NUM_STEPS)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N steady-state steps instead of timing")
+    ap.add_argument("--fused", action="store_true",
+                    help="time FusedVectorEnv (one kernel a step) instead")
+    ap.add_argument("--predrawn", action="store_true",
+                    help="draw each run's actions before its timer starts")
     args = ap.parse_args(argv)
-    venv = make_venv()
-    if args.profile:
-        print(json.dumps({**profile(venv, args.profile), "device": card()}))
-        return
-    result = measure(venv, args.steps)
+    if args.fused:
+        fvenv = make_fused()
+        if args.profile:
+            print(json.dumps({**profile_fused(fvenv, args.profile), "device": card()}))
+            return
+        result, engine = measure_fused(fvenv, args.steps), "fused step kernel"
+    else:
+        venv = make_venv()
+        if args.profile:
+            print(json.dumps({**profile(venv, args.profile), "device": card()}))
+            return
+        result, engine = measure(venv, args.steps, predrawn=args.predrawn), "pooled"
     print(json.dumps({
         "metric": f"env_steps_per_sec ({NUM_ENVS} envs, DoorKey-8x8, "
-                  "pooled auto-reset, PyTorch port)",
+                  f"{engine} auto-reset, PyTorch port)",
         "value": result["env_steps_per_sec"],
         "unit": "steps/s",
         **result,

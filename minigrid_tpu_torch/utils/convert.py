@@ -6,6 +6,11 @@ dicts) and returns the port's state on a device; ``state_to_numpy`` goes the
 other way, in the JAX package's dtypes (packed grids and PRNG keys as
 uint32).  The port never sees a JAX object: the caller turns a JAX pytree
 into such a dict.
+
+``fused_state_from_numpy``/``fused_state_to_numpy`` carry the plane dict of
+``FusedVectorEnv`` across: the JAX package keeps its grid as ``[N, LANES]``
+rows, ``LANES = max(W*H, V*V)``, whose lanes past ``W*H`` are packed grey
+walls; the port keeps ``[N, W, H]``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.grid_ops import pack_word
 from minigrid_tpu_torch.core.state import EnvState, resolve_device
 from minigrid_tpu_torch.parallel.vector import PooledState
 
@@ -83,4 +90,42 @@ def state_to_numpy(state) -> dict:
         else:
             arr = v.detach().cpu().numpy()
             out[f.name] = arr.astype(np.uint32) if f.name in _UINT32 else arr
+    return out
+
+
+_FUSED_DTYPES = {
+    "grid": torch.int32,
+    "agent": torch.int32,
+    "rng": torch.int64,
+    "t": torch.int32,
+    "mission": torch.int32,
+}
+
+
+def fused_state_from_numpy(fields: dict, width: int, height: int,
+                           device=None) -> dict:
+    """The JAX ``FusedVectorEnv`` planes as numpy (``grid [N, LANES]``,
+    ``agent [N, 8]``, ``rng``, ``t``, ``mission``) -> the port's planes on a
+    device, the pad lanes dropped."""
+    dev = resolve_device(device)
+    grid = np.asarray(fields["grid"])
+    wh = width * height
+    if grid.ndim != 2 or grid.shape[1] < wh:
+        raise ValueError(f"grid must be [N, >= {wh}], got {grid.shape}")
+    fields = {**fields, "grid": grid[:, :wh].reshape(-1, width, height)}
+    return _convert(fields, _FUSED_DTYPES, dev)
+
+
+def fused_state_to_numpy(fs: dict, lanes: int) -> dict:
+    """The port's planes -> numpy in the JAX package's layout and dtypes:
+    ``grid`` int32[N, lanes] with the lanes past W*H packed grey walls,
+    ``rng`` uint32."""
+    out = {k: fs[k].detach().cpu().numpy() for k in _FUSED_DTYPES}
+    grid = out["grid"].reshape(out["grid"].shape[0], -1)
+    if lanes < grid.shape[1]:
+        raise ValueError(f"lanes={lanes} is below the grid's {grid.shape[1]} cells")
+    pad =np.full((grid.shape[0], lanes - grid.shape[1]), pack_word(C.WALL_TRIPLE),
+                  dtype=np.int32)
+    out["grid"] = np.concatenate([grid, pad], axis=1)
+    out["rng"] = out["rng"].astype(np.uint32)
     return out

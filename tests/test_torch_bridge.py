@@ -217,3 +217,98 @@ def test_state_from_numpy_rejects_unknown_fields():
     fields["targets"] = np.zeros(2)
     with pytest.raises(ValueError, match="targets"):
         state_from_numpy(fields, CPU)
+
+
+# -- placement draws ------------------------------------------------------------
+
+def _jax_keys(n: int, seed: int):
+    jk = jax.random.split(jax.random.PRNGKey(seed), n)
+    return jk, torch.from_numpy(np.asarray(jk).astype(np.int64))
+
+
+@pytest.mark.parametrize("w,h", [(8, 8), (9, 5)])
+def test_sample_cell_matches_jax(w, h):
+    """Masks of every density, some empty (ok False, pos (0, 0))."""
+    rng = np.random.default_rng(w + h)
+    n = 32
+    density = np.linspace(0, 1, n)[:, None, None]
+    mask = rng.random((n, w, h)) < density
+    mask[3] = False
+    jk, tk = _jax_keys(n, seed=w * h)
+    want_pos, want_ok = jax.vmap(JG.sample_cell)(jk, jnp.asarray(mask))
+    pos, ok = TG.sample_cell(tk, torch.from_numpy(mask))
+    assert pos.dtype == torch.int32 and ok.dtype == torch.bool
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+    assert not ok[3] and ok[-1]
+    assert mask[np.arange(n)[ok.numpy()], pos[ok, 0].numpy(), pos[ok, 1].numpy()].all()
+
+
+@pytest.mark.parametrize("triple", [None, (5, 3, 0)])
+def test_place_obj_matches_jax(triple):
+    """Random grids, the agent's cell excluded, a search rectangle that
+    runs past the grid, and a reject mask; with and without a write."""
+    rng = np.random.default_rng(7)
+    n, w, h = 24, 7, 6
+    cells = np.stack([rng.choice([1, 1, 1, 2, 21], (n, w, h)),
+                      rng.integers(0, 11, (n, w, h)), np.zeros((n, w, h), int)], -1)
+    cells[5, ..., 0] = 2  # all wall: nowhere to place (ok False)
+    grid = JG.pack_np(cells)
+    agent = np.stack([rng.integers(0, w, n), rng.integers(0, h, n)], -1).astype(np.int32)
+    reject = rng.random((n, w, h)) < 0.2
+    jk, tk = _jax_keys(n, seed=1)
+    jtriple = None if triple is None else np.asarray(triple, np.uint8)
+
+    def jplace(k, g, a, rej):
+        return JG.place_obj(k, g, jtriple, agent_pos=a, top=(1, 2), size=(9, 3),
+                            reject_mask=rej)
+
+    want_g, want_pos, want_ok = jax.vmap(jplace)(jk, jnp.asarray(grid), jnp.asarray(agent),
+                                                  jnp.asarray(reject))
+    got_g, pos, ok = TG.place_obj(tk, torch.from_numpy(grid.astype(np.int32)), triple,
+                                  agent_pos=torch.from_numpy(agent), top=(1, 2),
+                                  size=(9, 3), reject_mask=torch.from_numpy(reject))
+    np.testing.assert_array_equal(got_g.numpy().astype(np.uint32), np.asarray(want_g))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+    assert ok.any() and not ok[5]
+
+
+def test_rect_mask_matches_jax():
+    for top, size in [((0, 0), (8, 8)), ((-2, 3), (4, 9)), ((5, 1), (2, 2))]:
+        want = JG.rect_mask(8, 6, top, size)
+        got = TG.rect_mask(8, 6, top, size, CPU)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- the fused planes -----------------------------------------------------------
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-Empty-5x5-v0", "MiniGrid-DoorKey-8x8-v0"])
+def test_fused_state_round_trip(env_id):
+    """JAX FusedVectorEnv planes -> the port's -> back, exactly; the pad
+    lanes of Empty-5x5 (49 lanes for 25 cells) come back as grey walls."""
+    import minigrid_tpu
+    from minigrid_tpu.ops.fused_step import FusedVectorEnv as JFusedVectorEnv
+
+    from minigrid_tpu_torch.utils.convert import (
+        fused_state_from_numpy,
+        fused_state_to_numpy,
+    )
+
+    jfv = JFusedVectorEnv(minigrid_tpu.make(env_id), 8, block=8)
+    _, jfs = jfv.reset(jax.random.PRNGKey(1))
+    fields = {k: np.asarray(v) for k, v in jfs.items()}
+    w = h = int(env_id.split("-")[-2].split("x")[0])
+    fs = fused_state_from_numpy(fields, w, h, CPU)
+    assert fs["grid"].shape == (8, w, h) and fs["grid"].dtype == torch.int32
+    assert fs["rng"].dtype == torch.int64 and fs["t"].shape == ()
+    back = fused_state_to_numpy(fs, jfv._lanes)
+    for k, v in fields.items():
+        assert back[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    if jfv._lanes > w * h:
+        assert (back["grid"][:, w * h:] == TG.pack_word(TC.WALL_TRIPLE)).all()
+    with pytest.raises(ValueError):
+        fused_state_to_numpy(fs, w * h - 1)
+    with pytest.raises(ValueError):
+        fused_state_from_numpy({**fields, "extra": fields["t"]}, w, h, CPU)

@@ -1,7 +1,7 @@
-"""The port's kernel wrapper, its build, and the port's import hygiene.
+"""The port's kernel wrappers, their build, and the port's import hygiene.
 
-The CUDA kernel itself runs only on a card: the tests marked ``gpu`` hold it
-against its plain version there and skip elsewhere.  ``chip_smoke.py`` runs
+The CUDA kernels themselves run only on a card: the tests marked ``gpu`` hold
+them against their plain versions there and skip elsewhere.  ``chip_smoke.py`` runs
 the same comparison at the main path's shapes.  This file imports neither JAX
 nor the JAX package, so on a machine with a card and without JAX it runs as
 
@@ -11,6 +11,8 @@ nor the JAX package, so on a machine with a card and without JAX it runs as
 from __future__ import annotations
 
 import ast
+import dataclasses
+import re
 from pathlib import Path
 
 import numpy as np
@@ -18,8 +20,9 @@ import pytest
 import torch
 
 import minigrid_tpu_torch
+from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import rng
-from minigrid_tpu_torch.ops import _build, obs_gather
+from minigrid_tpu_torch.ops import _build, fused_step, obs_gather
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "minigrid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -64,6 +67,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     env = minigrid_tpu_torch.make("MiniGrid-DoorKey-5x5-v0")
     with pytest.raises(RuntimeError):
         env.generate(torch.zeros((2, 2), dtype=torch.int64), env.default_params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        minigrid_tpu_torch.FusedVectorEnv(env, 4)
 
 
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():
@@ -113,7 +118,81 @@ def test_library_path_follows_source_content(tmp_path, monkeypatch):
 def test_every_kernel_source_is_built():
     """Each csrc/*.cu has a wrapper module that loads it by name."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["obs_gather"]
+    assert sources == ["fused_step", "obs_gather"]
+
+
+def _fused_inputs(env_id: str, n: int, device, seed: int = 0, walk: int = 12,
+                  **overrides):
+    """Fused planes after a random walk of ``env_id`` and a step's actions,
+    key and index, on ``device``."""
+    env = minigrid_tpu_torch.make(env_id, **overrides)
+    p = env.default_params
+    k_gen, k_walk, k_step = rng.split(rng.PRNGKey(seed, "cpu"), 3).unbind(0)
+    st = env.generate(rng.split(k_gen, n), p, "cpu")
+    for k in rng.split(k_walk, walk):
+        st = env.step_state(st, rng.randint(k, (n,), 0, 8), p)[0]
+    fs = fused_step.planes_from_states(st)
+    args = (fs["grid"], fs["agent"], rng.randint(k_step, (n,), 0, 8), k_step,
+            torch.tensor(3, dtype=torch.int32))
+    return tuple(a.to(device) for a in args), fused_step.fused_spec(env, p)
+
+
+def test_fused_cpu_tensors_take_the_plain_version_and_do_not_count():
+    args, spec = _fused_inputs("MiniGrid-DoorKey-8x8-v0", 6, "cpu")
+    before = fused_step.LAUNCHES
+    got = fused_step.fused_step(*args, spec)
+    assert fused_step.LAUNCHES == before
+    want = fused_step.fused_step_plain(*args, spec)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    grid, agent, image, reward, term, trunc, key, t = got
+    assert image.dtype == torch.uint8 and image.shape == (6, 7, 7, 3)
+    assert agent.shape == (6, 8) and (agent[:, 6:] == 0).all()
+    assert reward.dtype == torch.float32 and term.dtype == trunc.dtype == torch.bool
+    assert key.dtype == torch.int64 and int(t) == 4
+
+
+def test_fused_wrapper_rejects_what_it_does_not_take():
+    """Checked before the device is looked at, so on the CPU too."""
+    (grid, agent, action, key, t), spec = _fused_inputs("MiniGrid-DoorKey-5x5-v0", 4, "cpu")
+    fs = fused_step.fused_step
+    with pytest.raises(TypeError):
+        fs(grid.long(), agent, action, key, t, spec)
+    with pytest.raises(TypeError):
+        fs(grid, agent, action.long(), key, t, spec)
+    with pytest.raises(TypeError):
+        fs(grid, agent, action, key.int(), t, spec)
+    with pytest.raises(ValueError):
+        fs(grid, agent[:, :6].contiguous(), action, key, t, spec)
+    with pytest.raises(ValueError):
+        fs(grid, agent, action[:3], key, t, spec)
+    with pytest.raises(ValueError):
+        fs(grid.transpose(1, 2), agent, action, key, t, spec)
+    with pytest.raises(ValueError):  # grid of another size than the spec's
+        fs(grid[:, :4, :4].contiguous(), agent, action, key, t, spec)
+    with pytest.raises(ValueError):
+        fs(grid, agent, action, key, t.reshape(1), spec)
+    with pytest.raises(ValueError):
+        fs(grid[:0], agent[:0], action[:0], key, t, spec)
+    for view in (4, 33):
+        with pytest.raises(ValueError):
+            fs(grid, agent, action, key, t, dataclasses.replace(spec, view=view))
+
+
+def test_fused_kernel_constants_are_the_tables():
+    """csrc/fused_step.cu keeps its own copy of the type, state and color
+    ids and of the generator ids; they must be the port's."""
+    src = (_build.CSRC / "fused_step.cu").read_text()
+    consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    T, S, K = C.OBJECT_TO_IDX, C.STATE_TO_IDX, C.COLOR_TO_IDX
+    want = {"kEmpty": T["empty"], "kWall": T["wall"], "kDoor": T["door"],
+            "kKey": T["key"], "kBall": T["ball"], "kGoal": T["goal"],
+            "kLava": T["lava"], "kOpen": S["open"], "kLocked": S["locked"],
+            "kGreen": K["green"], "kYellow": K["yellow"], "kGrey": K["grey"],
+            "kGenDoorKey": fused_step.GEN_DOORKEY,
+            "kGenEmptyRandom": fused_step.GEN_EMPTY_RANDOM,
+            "kMaxView": fused_step.MAX_VIEW}
+    assert {k: consts.get(k) for k in want} == want
 
 
 # -- on the card ------------------------------------------------------------------
@@ -169,3 +248,52 @@ def test_observations_on_the_card_go_through_the_kernel(cuda):
     assert obs_gather.LAUNCHES == before + 1
     cpu_obs, _ = env.reset(keys.cpu(), p, device="cpu")
     assert torch.equal(obs["image"].cpu(), cpu_obs["image"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id,overrides", [
+    ("MiniGrid-DoorKey-8x8-v0", {}),
+    ("MiniGrid-DoorKey-8x8-v0", {"max_steps": 12}),  # every lane regenerates
+    ("MiniGrid-DoorKey-6x6-v0", {"agent_view_size": 5}),  # the generic-V kernel
+    ("MiniGrid-Empty-5x5-v0", {"max_steps": 14}),
+    ("MiniGrid-Empty-Random-6x6-v0", {"max_steps": 14}),
+    ("MiniGrid-Empty-16x16-v0", {}),
+])
+def test_fused_kernel_matches_plain(cuda, env_id, overrides):
+    args, spec = _fused_inputs(env_id, 512, "cpu", seed=len(env_id), **overrides)
+    want = fused_step.fused_step_plain(*args, spec)
+    before = fused_step.LAUNCHES
+    got = fused_step.fused_step(*(a.to(cuda) for a in args), spec)
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 1
+    for name, g, w in zip(("grid", "agent", "image", "reward", "term", "trunc",
+                           "key", "t"), got, want):
+        g = g.cpu()
+        if w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_fused_vector_env_on_the_card_is_one_launch_a_step(cuda):
+    from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
+
+    env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0", max_steps=9)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        fv = FusedVectorEnv(env, 64, device=dev)
+        _, fs = fv.reset(rng.PRNGKey(1, dev))
+        before = fused_step.LAUNCHES
+        r = np.random.default_rng(0)
+        images = []
+        for _ in range(20):
+            a = torch.from_numpy(r.integers(0, 8, 64).astype(np.int32))
+            obs, fs, *_ = fv.step(fs, a)
+            images.append(obs["image"].cpu())
+        runs[dev.type] = (images, {k: v.cpu() for k, v in fs.items()},
+                          fused_step.LAUNCHES - before)
+    assert runs["cuda"][2] == 20 and runs["cpu"][2] == 0
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert torch.equal(g, c)
+    for k in runs["cpu"][1]:
+        assert torch.equal(runs["cuda"][1][k], runs["cpu"][1][k]), k

@@ -87,3 +87,30 @@ def test_randint_per_row_bounds_batched():
                       torch.from_numpy(hi)[:, None])
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
+
+
+@pytest.mark.parametrize("data", [0, 1, 5, 2**31 - 1, 2**31, 2**32 - 1])
+def test_fold_in(data):
+    """Single and batched keys, data 0 and at and above 2^31."""
+    for seed in (0, 42, 2**31 - 1):
+        got = rng.fold_in(rng.PRNGKey(seed, CPU), data)
+        assert got.dtype == torch.int64 and got.shape == (2,)
+        np.testing.assert_array_equal(
+            _np(got), np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), data)))
+    jk, tk = _keys(6, seed=data % 97)
+    want = jax.vmap(lambda k: jax.random.fold_in(k, data))(jk)
+    np.testing.assert_array_equal(_np(rng.fold_in(tk, data)), np.asarray(want))
+
+
+def test_fold_in_per_key_data_and_split_identity():
+    jk, tk = _keys(5, seed=3)
+    data = np.array([0, 1, 7, 2**31, 2**32 - 1], dtype=np.uint32)
+    want = jax.vmap(jax.random.fold_in)(jk, data)
+    got = rng.fold_in(tk, torch.from_numpy(data.astype(np.int64)))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    # fold_in(k, 1) == split(k)[1], which FusedVectorEnv.reset relies on
+    assert torch.equal(rng.fold_in(tk, 1), rng.split(tk)[:, 1])
+    with pytest.raises(ValueError):
+        rng.fold_in(tk, -1)
+    with pytest.raises(ValueError):
+        rng.fold_in(tk, 2**32)
