@@ -11,14 +11,16 @@ printing a result:
 3. hold each kernel bitwise against its plain PyTorch version on the card:
    the egocentric-window gather over every direction x pose on random grids,
    and on DoorKey-8x8 states at B=4096 after a random walk (with the whole
-   observation checked against the CPU), plus a self-check that the compare
-   catches a single flipped bit; the fused step on DoorKey-8x8 at B=4096
-   after a random walk (every action, some agents carrying the key), on a
-   batch whose small ``max_steps`` sends most lanes to regeneration, on
-   Empty-5x5 (the view runs past the grid; half the agents face the goal),
-   Empty-Random-6x6 and Empty-16x16, every output compared (grid, agent
-   plane, image, reward bits, flags, next key, step index), plus the
-   flipped-bit self-check on the image and on the grid;
+   observation checked against the CPU) and at the ragged B=4097 (a last
+   tile of one env), each with a self-check that the compare catches a
+   single flipped bit; the fused step on DoorKey-8x8 at B=4096 after a
+   random walk (every action, some agents carrying the key), on a batch
+   whose small ``max_steps`` sends most lanes to regeneration, on the same
+   at the ragged B=4097, on Empty-5x5 (the view runs past the grid; half the
+   agents face the goal), Empty-Random-6x6 and Empty-16x16, every output
+   compared (grid, agent plane, image, reward bits, flags, next key, step
+   index), plus the flipped-bit self-check on the image and on the grid of
+   the first and the ragged batch;
 4. drive each main path with every kernel's launch count zeroed just before
    and read just after: ``make_vec("MiniGrid-DoorKey-8x8-v0", 4096,
    reset_strategy="pooled", pool_refill=64)`` through the bench loop of
@@ -31,8 +33,9 @@ printing a result:
    at B=16 on the card and on the CPU, bitwise;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
-   median), compute each kernel's bound, and time both engines end to end
-   with the actions of each run drawn before its timer starts.
+   median), compute each kernel's bound, time the fused step at B=32768
+   beside B=4096 with its bound, and time both engines end to end with the
+   actions of each run drawn before its timer starts.
 
 It prints one JSON line of kernel records, then the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it,
@@ -55,6 +58,8 @@ POOL_REFILL = 64
 REFILL_PERIOD = 8
 MAIN_STEPS = 648  # past DoorKey-8x8's 640-step truncation, a multiple of 8
 VIEW = 7
+RAGGED_ENVS = NUM_ENVS + 1  # the last tile of the kernels holds one env
+WIDE_ENVS = 32768
 SWEEP_SHAPES = ((8, 8, 7), (9, 5, 7), (6, 9, 5))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
@@ -159,37 +164,47 @@ def doorkey_walk_states(dev, num_envs: int, steps: int = 24, env_id: str = ENV_I
     return env, params, state
 
 
+def check_flipped_bit(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Self-check: the compare must see a single flipped bit, here in the
+    last env's last entry (the ragged tile's) and at one inside."""
+    for index in (got.numel() - 1, 12345 % got.numel()):
+        flipped = got.clone()
+        flipped.view(-1)[index] ^= 1
+        if mismatches(flipped, want) != 1:
+            raise AssertionError(f"the compare missed a flipped bit in {what}")
+
+
 def check_gather_doorkey(dev, obs_gather) -> tuple[int, dict]:
-    """Kernel vs plain on B=4096 DoorKey states; the whole observation on
-    the card vs the same states on the CPU.  Returns (max error, inputs)."""
+    """Kernel vs plain on B=4096 and ragged B=4097 DoorKey states; the whole
+    observation on the card vs the same states on the CPU.  Returns (max
+    error, the B=4096 inputs)."""
     from minigrid_tpu_torch.core.obs import gen_obs_batch
     from minigrid_tpu_torch.core.state import map_fields
 
-    env, params, st = doorkey_walk_states(dev, NUM_ENVS)
-    args = (st.grid, st.agent_pos, st.agent_dir, VIEW)
-    got = obs_gather.gather_view(*args)
-    want = obs_gather.gather_view_plain(*args)
-    torch.cuda.synchronize()
-    bad = mismatches(got, want)
-    if bad:
-        raise AssertionError(f"obs_gather kernel != plain on DoorKey states: {bad} cells")
-    # self-check: the compare must see a single flipped bit
-    flipped = got.clone()
-    flipped.view(-1)[12345 % flipped.numel()] ^= 1
-    if mismatches(flipped, want) != 1:
-        raise AssertionError("the kernel compare missed a flipped bit")
-    carrying = int((st.carrying[:, 0] != 1).sum())
-    dirs = torch.bincount(st.agent_dir.long(), minlength=4).tolist()
-    log(f"  DoorKey-8x8 B={NUM_ENVS}: bitwise equal; dirs {dirs}, "
-        f"{carrying} envs carrying; flipped-bit self-check caught")
+    worst = 0
+    for n in (RAGGED_ENVS, NUM_ENVS):
+        env, params, st = doorkey_walk_states(dev, n, seed=20260820 + n)
+        args = (st.grid, st.agent_pos, st.agent_dir, VIEW)
+        got = obs_gather.gather_view(*args)
+        want = obs_gather.gather_view_plain(*args)
+        torch.cuda.synchronize()
+        bad = mismatches(got, want)
+        if bad:
+            raise AssertionError(f"obs_gather kernel != plain on DoorKey states B={n}: "
+                                 f"{bad} cells")
+        check_flipped_bit(got, want, f"the B={n} window")
+        worst = max(worst, max_abs_err(got, want))
+        carrying = int((st.carrying[:, 0] != 1).sum())
+        dirs = torch.bincount(st.agent_dir.long(), minlength=4).tolist()
+        log(f"  DoorKey-8x8 B={n}: bitwise equal; dirs {dirs}, "
+            f"{carrying} envs carrying; flipped-bit self-check caught")
     obs_gpu = gen_obs_batch(st, params)
     obs_cpu = gen_obs_batch(map_fields(lambda x: x.cpu(), st), params)
     for k in obs_cpu:
         if mismatches(obs_gpu[k].cpu(), obs_cpu[k]):
             raise AssertionError(f"observation {k!r} on the card != on the CPU")
     log("  full observation (gather, occlusion, overlay, encode): card == CPU")
-    return max_abs_err(got, want), {"grid": st.grid, "pos": st.agent_pos,
-                                    "dir": st.agent_dir}
+    return worst, {"grid": st.grid, "pos": st.agent_pos, "dir": st.agent_dir}
 
 
 FUSED_OUTPUTS = ("grid", "agent", "image", "reward", "terminated", "truncated",
@@ -197,9 +212,9 @@ FUSED_OUTPUTS = ("grid", "agent", "image", "reward", "terminated", "truncated",
 
 
 def fused_case(dev, env_id: str, walk: int, seed: int, max_steps: int | None = None,
-               aim_at_goal: bool = False, **overrides):
-    """Fused-step inputs on ``dev`` at B=4096: ``env_id`` levels after a
-    random walk, actions over all eight, a key and a step index.
+               aim_at_goal: bool = False, num_envs: int = NUM_ENVS, **overrides):
+    """Fused-step inputs on ``dev`` at B=``num_envs``: ``env_id`` levels
+    after a random walk, actions over all eight, a key and a step index.
     ``max_steps`` overrides the spec's limit and spreads the step counts
     over [0, 3 * max_steps), so most lanes finish; ``aim_at_goal`` puts half
     the agents west of the goal facing it."""
@@ -209,20 +224,20 @@ def fused_case(dev, env_id: str, walk: int, seed: int, max_steps: int | None = N
     from minigrid_tpu_torch.ops.fused_step import A_CNT, A_DIR, A_X, A_Y, fused_spec, \
         planes_from_states
 
-    env, params, st = doorkey_walk_states(dev, NUM_ENVS, walk, env_id, seed, **overrides)
+    env, params, st = doorkey_walk_states(dev, num_envs, walk, env_id, seed, **overrides)
     planes = planes_from_states(st)
     spec = fused_spec(env, params)
     agent = planes["agent"].clone()
     k_act, k_cnt, k_step = rng.split(rng.PRNGKey(seed + 1, dev), 3).unbind(0)
     if max_steps is not None:
         spec = dataclasses.replace(spec, max_steps=max_steps)
-        agent[:, A_CNT] = rng.randint(k_cnt, (NUM_ENVS,), 0, 3 * max_steps)
+        agent[:, A_CNT] = rng.randint(k_cnt, (num_envs,), 0, 3 * max_steps)
     if aim_at_goal:
-        half = NUM_ENVS // 2
+        half = num_envs // 2
         agent[:half, A_X] = spec.width - 3
         agent[:half, A_Y] = spec.height - 2
         agent[:half, A_DIR] = 0
-    action = rng.randint(k_act, (NUM_ENVS,), 0, 8)
+    action = rng.randint(k_act, (num_envs,), 0, 8)
     t = torch.zeros((), dtype=torch.int32, device=dev) + seed % 1000
     return (planes["grid"], agent, action, rng.fold_in(k_step, 0), t), spec
 
@@ -246,12 +261,14 @@ def compare_fused(got, want, where: str) -> int:
 
 
 def check_fused_kernel(dev, fused_step) -> tuple[float, list]:
-    """The fused step kernel against its plain version on five batches;
-    returns (max error, [(case, inputs, spec)] of the two DoorKey-8x8
-    batches, for timing)."""
+    """The fused step kernel against its plain version on six batches;
+    returns (max error, [(case, inputs, spec)] of the DoorKey-8x8 batches
+    at B=4096, for timing)."""
     cases = [
         ("DoorKey-8x8 after a 24-step walk", dict(env_id=ENV_ID, walk=24, seed=1)),
         ("DoorKey-8x8, max_steps 12", dict(env_id=ENV_ID, walk=24, seed=2, max_steps=12)),
+        ("DoorKey-8x8 ragged, max_steps 12",
+         dict(env_id=ENV_ID, walk=24, seed=6, max_steps=12, num_envs=RAGGED_ENVS)),
         ("Empty-5x5, half facing the goal",
          dict(env_id="MiniGrid-Empty-5x5-v0", walk=6, seed=3, max_steps=20,
               aim_at_goal=True)),
@@ -259,10 +276,11 @@ def check_fused_kernel(dev, fused_step) -> tuple[float, list]:
          dict(env_id="MiniGrid-Empty-Random-6x6-v0", walk=8, seed=4, max_steps=10)),
         ("Empty-16x16", dict(env_id="MiniGrid-Empty-16x16-v0", walk=40, seed=5)),
     ]
-    worst, main, timed = 0.0, None, []
-    for where, kw in cases:
+    worst, timed = 0.0, []
+    for k, (where, kw) in enumerate(cases):
         args, spec = fused_case(dev, **kw)
-        if kw["env_id"] == ENV_ID:
+        n = args[0].shape[0]
+        if kw["env_id"] == ENV_ID and n == NUM_ENVS:
             timed.append((where, args, spec))
         got = fused_step.fused_step(*args, spec)
         want = fused_step.fused_step_plain(*args, spec)
@@ -272,26 +290,20 @@ def check_fused_kernel(dev, fused_step) -> tuple[float, list]:
         goals = int((want[3] != 0).sum())
         carrying = int((args[1][:, 4] != 1).sum())
         actions = torch.bincount(args[2].long(), minlength=8).tolist()
-        log(f"  fused_step {where}, B={NUM_ENVS} {spec.width}x{spec.height} "
+        log(f"  fused_step {where}, B={n} {spec.width}x{spec.height} "
             f"V={spec.view}: bitwise equal; {done} lanes regenerated, {goals} "
             f"reached the goal, {carrying} carrying, actions {actions}")
-        if main is None:
-            main = (args, spec, want)
-            if min(actions) == 0 or carrying == 0:
-                raise AssertionError("the DoorKey batch misses an action or a carrier")
-        if where.startswith("DoorKey-8x8, max") and done < NUM_ENVS // 2:
+        if k == 0 and (min(actions) == 0 or carrying == 0):
+            raise AssertionError("the DoorKey batch misses an action or a carrier")
+        if "max_steps 12" in where and done < n // 2:
             raise AssertionError(f"only {done} lanes regenerated")
         if where.startswith("Empty-5x5") and goals == 0:
             raise AssertionError("no lane reached the goal")
-    args, spec, want = main
-    got = fused_step.fused_step(*args, spec)
-    torch.cuda.synchronize()
-    for i, name in ((2, "image"), (0, "grid")):
-        flipped = got[i].clone()
-        flipped.view(-1)[54321 % flipped.numel()] ^= 1
-        if mismatches(flipped, want[i]) != 1:
-            raise AssertionError(f"the fused compare missed a flipped bit in the {name}")
-    log("  fused_step flipped-bit self-check caught on the image and the grid")
+        if k == 0 or n == RAGGED_ENVS:
+            for i, name in ((2, "image"), (0, "grid")):
+                check_flipped_bit(got[i], want[i], f"the fused {name} of {where}")
+            log(f"  fused_step flipped-bit self-check caught on the image and the grid "
+                f"of {where}")
     return worst, timed
 
 
@@ -623,7 +635,7 @@ def main() -> int:
     log(f"  obs_gather B={NUM_ENVS} 8x8 V={VIEW}: kernel {times['ms'] * 1e3:.2f} us, "
         f"plain {times['plain_ms'] * 1e3:.2f} us, torch.gather "
         f"{times['library_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
-        f"({bound_by}; {work}) [{card}]")
+        f"({bound_by}; {work}), {bound_ms / times['ms']:.3f} of the bound [{card}]")
 
     fused_times = time_fused(fused_step, fused_args, fused_spec)
     fused_out = fused_step.fused_step_plain(*fused_args, fused_spec)
@@ -632,12 +644,18 @@ def main() -> int:
     log(f"  fused_step B={NUM_ENVS} 8x8 V={VIEW}: kernel "
         f"{fused_times['ms'] * 1e3:.2f} us, plain {fused_times['plain_ms'] * 1e3:.2f} us, "
         f"no library call, bound {fused_bound * 1e3:.3f} us ({fused_bound_by}; "
-        f"{fused_work}) [{card}]")
+        f"{fused_work}), {fused_bound / fused_times['ms']:.3f} of the bound [{card}]")
     where, args, spec = fused_batches[1]  # most lanes regenerate
     regen_ms = gpu_time_ms(lambda: fused_step.fused_step(*args, spec))
     regen_bound = fused_bound_ms(args, spec, fused_step.fused_step_plain(*args, spec))
     log(f"  fused_step on {where}: kernel {regen_ms * 1e3:.2f} us, bound "
         f"{regen_bound[0] * 1e3:.3f} us ({regen_bound[1]}; {regen_bound[2]}) [{card}]")
+    args, spec = fused_case(dev, ENV_ID, walk=24, seed=1, num_envs=WIDE_ENVS)
+    wide_ms = gpu_time_ms(lambda: fused_step.fused_step(*args, spec))
+    wide_bound = fused_bound_ms(args, spec, fused_step.fused_step_plain(*args, spec))
+    log(f"  fused_step B={WIDE_ENVS} 8x8 V={VIEW}: kernel {wide_ms * 1e3:.2f} us, bound "
+        f"{wide_bound[0] * 1e3:.3f} us ({wide_bound[1]}; {wide_bound[2]}), "
+        f"{wide_bound[0] / wide_ms:.3f} of the bound [{card}]")
 
     from minigrid_tpu_torch.tools import bench
 

@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes``.  A library is
 built once per content hash (its source, the headers beside it and the
 flags), at first use, into ``minigrid_tpu_torch/_build/``.  All sources not yet
 built compile together, one ``nvcc`` process each.  A failed build raises.
-``check_tensor`` is the wrappers' check of what they pass to a C entry.
+``check_tensor`` and ``check_launch`` are the wrappers' checks of what they
+pass to a C entry.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ NVCC_FLAGS = [
 ]
 _BUILD_TIMEOUT_S = 600
 CUDA_DEFAULT_HOME = "/usr/local/cuda"
+MAX_SHARED_BYTES = 227 * 1024  # shared memory one block may hold on Hopper
+MAX_INDEX = 2 ** 31  # the kernels index their tensors with 32-bit ints
 
 
 def _nvcc() -> str:
@@ -100,6 +103,18 @@ def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_launch(tile_bytes: int, tile: int, n: int, words_per_env: int,
+                 what: str) -> None:
+    """Raise ``ValueError`` unless a kernel's tile of ``tile`` envs fits in a
+    block's shared memory and ``n`` envs of ``words_per_env`` elements fit
+    its 32-bit indices; ``what`` names the grid."""
+    if tile_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"{what} needs {tile_bytes} bytes of shared memory per tile "
+                         f"of {tile} envs, over the {MAX_SHARED_BYTES} a block has")
+    if n * words_per_env >= MAX_INDEX:
+        raise ValueError(f"{n} envs of {what} overflow the kernels' 32-bit indices")
 
 
 @functools.cache

@@ -6,7 +6,9 @@ whose dynamics are exactly ``base_step`` in one launch — front cell, action
 tree, door FSM, pickup/drop/toggle, reward and truncation, closed-form
 regeneration of finished envs (DoorKey, Empty), the rotated view gather,
 occlusion, the carried-object overlay and unseen = 0.  The kernel is
-``csrc/fused_step.cu``: one thread per env.  See the source for its bound.
+``csrc/fused_step.cu``: a block per tile of 16 envs, staged in shared memory,
+in phases (step, regeneration, view, occlusion, image) between barriers.
+See the source for its bound.
 
 The state is a dict of planes, as in the JAX package:
 
@@ -49,7 +51,7 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.obs import process_vis
 from minigrid_tpu_torch.core.state import EnvParams, base_state, resolve_device
 from minigrid_tpu_torch.core.step import _fma_f32, dir_to_vec
-from minigrid_tpu_torch.ops._build import check_tensor
+from minigrid_tpu_torch.ops._build import check_launch, check_tensor
 from minigrid_tpu_torch.ops.obs_gather import gather_view_plain
 
 A_X, A_Y, A_DIR, A_CNT, A_CTYP, A_CCOL = range(6)
@@ -59,6 +61,7 @@ GEN_DOORKEY, GEN_EMPTY, GEN_EMPTY_RANDOM = range(3)
 DRAW_COLUMNS = 8
 DRAW_SPAN = 1 << 24
 MAX_VIEW = 31  # occlusion keeps one view column per 32-bit word
+TILE = 16  # envs per block (csrc/fused_step.cu kTile)
 
 _EMPTY = C.OBJECT_TO_IDX["empty"]
 _WALL = C.OBJECT_TO_IDX["wall"]
@@ -92,6 +95,13 @@ class FusedSpec:
     start_y: int = 1
     start_dir: int = 0
 
+
+
+def fused_tile_bytes(width: int, height: int, view: int) -> int:
+    """Shared memory of one block of the fused kernel: per env its grid row,
+    agent row (8), action, level (4), done, view frame (4), carried and
+    column words, and its image bytes (``csrc/fused_step.cu::tile_bytes``)."""
+    return 4 * TILE * (width * height + 19 + view) + 3 * TILE * view * view
 
 
 def reward_factor(max_steps: int) -> float:
@@ -269,15 +279,21 @@ def fused_step_plain(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tens
 
 # -- kernel -----------------------------------------------------------------------
 
-@functools.cache
-def _kernel():
-    from minigrid_tpu_torch.ops import _build
-
-    fn = _build.load("fused_step").fused_step
+def bind(lib: ctypes.CDLL):
+    """The C entry ``fused_step`` of a library built from
+    ``csrc/fused_step.cu``, with its argument types."""
+    fn = lib.fused_step
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    from minigrid_tpu_torch.ops import _build
+
+    return bind(_build.load("fused_step"))
 
 
 def fused_step(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tensor,
@@ -292,6 +308,8 @@ def fused_step(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tensor,
         raise ValueError(f"view must be odd and in [3, {MAX_VIEW}], got {v}")
     if n < 1:
         raise ValueError("fused_step needs at least one env")
+    check_launch(fused_tile_bytes(w, h, v), TILE, n, max(w * h, v * v * 3),
+                 f"a {w}x{h} grid with view {v}")
     dev = grid.device
     for arg, name, dtype, shape in (
             (grid, "grid", torch.int32, (n, w, h)),

@@ -2,9 +2,10 @@
 
 Replaces the JAX package's Pallas kernel ``ops/obs_pallas.py::_make_kernel``
 (driven by ``gather_view_pallas_packed``) and its rotation epilogue.  The
-kernel is ``csrc/obs_gather.cu``: one thread per (env, view cell), rotation
-folded into the coordinates, out-of-bounds cells stamped with the packed grey
-wall.  See the source for its bound on the card.
+kernel is ``csrc/obs_gather.cu``: a block per tile of 32 envs staged in shared
+memory, one thread per (env, view row), rotation folded into the
+coordinates, out-of-bounds cells stamped with the packed grey wall.  See the
+source for its bound on the card.
 
 :func:`gather_view` takes the plain version for a tensor on the CPU and the
 kernel for a CUDA tensor; on a CUDA tensor it launches the kernel or raises.
@@ -22,9 +23,10 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.grid_ops import pack_word
 from minigrid_tpu_torch.core.obs import view_world_coords
-from minigrid_tpu_torch.ops._build import check_tensor
+from minigrid_tpu_torch.ops._build import check_launch, check_tensor
 
 WALL_PACKED = pack_word(C.WALL_TRIPLE)
+TILE = 32  # envs per block (csrc/obs_gather.cu kTile)
 
 LAUNCHES = 0
 
@@ -41,14 +43,26 @@ def gather_view_plain(grid: torch.Tensor, agent_pos: torch.Tensor,
     return torch.where(oob, WALL_PACKED, cells.reshape(b, v, v))
 
 
+def gather_tile_bytes(width: int, height: int) -> int:
+    """Shared memory of one block of the kernel: per env its grid row, pose
+    and direction (``csrc/obs_gather.cu::tile_bytes``)."""
+    return 4 * TILE * (width * height + 3)
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry ``obs_gather`` of a library built from
+    ``csrc/obs_gather.cu``, with its argument types."""
+    fn = lib.obs_gather
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def _kernel():
     from minigrid_tpu_torch.ops import _build
 
-    fn = _build.load("obs_gather").obs_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(_build.load("obs_gather"))
 
 
 def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
@@ -66,6 +80,7 @@ def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
     v = int(view_size)
     if v < 1:
         raise ValueError(f"view_size must be positive, got {v}")
+    check_launch(gather_tile_bytes(w, h), TILE, b, max(w * h, v * v), f"a {w}x{h} grid")
     for t, name, shape in ((grid, "grid", (b, w, h)), (agent_pos, "agent_pos", (b, 2)),
                            (agent_dir, "agent_dir", (b,))):
         check_tensor(t, name, torch.int32, shape, grid.device)

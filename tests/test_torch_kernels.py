@@ -180,9 +180,11 @@ def test_fused_wrapper_rejects_what_it_does_not_take():
 
 
 def test_fused_kernel_constants_are_the_tables():
-    """csrc/fused_step.cu keeps its own copy of the type, state and color
-    ids and of the generator ids; they must be the port's."""
-    src = (_build.CSRC / "fused_step.cu").read_text()
+    """csrc/fused_step.cu and the header it shares with obs_gather.cu keep
+    their own copy of the type, state and color ids and of the generator
+    ids; they must be the port's."""
+    src = "\n".join(p.read_text() for p in
+                    [_build.CSRC / "fused_step.cu", *sorted(_build.CSRC.glob("*.cuh"))])
     consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     T, S, K = C.OBJECT_TO_IDX, C.STATE_TO_IDX, C.COLOR_TO_IDX
     want = {"kEmpty": T["empty"], "kWall": T["wall"], "kDoor": T["door"],
@@ -193,6 +195,70 @@ def test_fused_kernel_constants_are_the_tables():
             "kGenEmptyRandom": fused_step.GEN_EMPTY_RANDOM,
             "kMaxView": fused_step.MAX_VIEW}
     assert {k: consts.get(k) for k in want} == want
+
+
+def _constants(name: str) -> dict:
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_wrappers_know_the_kernels_tiles():
+    assert _constants("fused_step")["kTile"] == fused_step.TILE
+    assert _constants("obs_gather")["kTile"] == obs_gather.TILE
+    assert _constants("fused_step")["kAgentWidth"] == fused_step.A_WIDTH
+
+
+def test_kernel_ab_phase_lines_are_in_the_sources():
+    """tools/kernel_ab.py cuts the current kernels before each phase's
+    first line: each must be in its source once."""
+    from minigrid_tpu_torch.tools import kernel_ab
+
+    for kernel, phases in kernel_ab.PHASES.items():
+        src = (_build.CSRC / f"{kernel}.cu").read_text()
+        for line in phases.values():
+            assert src.count(line) == 1, (kernel, line)
+
+
+def _tile_bytes_in_source(name: str):
+    """The C expression of ``tile_bytes(WH[, V])`` in csrc/<name>.cu, as a
+    Python function of (WH, V)."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    body = re.search(r"int tile_bytes\([^)]*\) \{\s*return (.*?);", src, re.S)[1]
+    return lambda wh, v: eval(body, {}, {**_constants(name), "WH": wh, "V": v})  # noqa: S307
+
+
+@pytest.mark.parametrize("w,h,v", [(8, 8, 7), (5, 5, 3), (16, 16, 11), (40, 40, 7),
+                                   (9, 6, 31)])
+def test_wrappers_size_the_tile_as_the_kernels_do(w, h, v):
+    """The wrappers' shared-memory sizes are the kernels' own formulas."""
+    assert fused_step.fused_tile_bytes(w, h, v) == _tile_bytes_in_source("fused_step")(w * h, v)
+    assert obs_gather.gather_tile_bytes(w, h) == _tile_bytes_in_source("obs_gather")(w * h, v)
+    assert fused_step.fused_tile_bytes(8, 8, 7) == 8112
+
+
+def test_fused_wrapper_refuses_a_tile_over_shared_memory():
+    """A grid whose tile of envs exceeds a block's 227 KB of shared memory,
+    or a batch past 32-bit indices, is refused before the device is looked
+    at, so on the CPU too."""
+    (grid, agent, action, key, t), spec = _fused_inputs("MiniGrid-DoorKey-5x5-v0", 4, "cpu")
+    big = dataclasses.replace(spec, width=60, height=60)
+    assert fused_step.fused_tile_bytes(60, 60, 7) > _build.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_step.fused_step(torch.zeros((4, 60, 60), dtype=torch.int32), agent, action,
+                              key, t, big)
+    wide = dataclasses.replace(spec, width=32, height=32)
+    n = 2 ** 31 // (32 * 32) + 1
+    huge = torch.zeros((1, 32, 32), dtype=torch.int32).expand(n, 32, 32)
+    with pytest.raises(ValueError, match="32-bit"):
+        fused_step.fused_step(huge, agent, action, key, t, wide)
+    # the largest DoorKey that fits still takes the plain version on the CPU
+    fits = dataclasses.replace(spec, width=56, height=56)
+    assert fused_step.fused_tile_bytes(56, 56, 7) <= _build.MAX_SHARED_BYTES
+    (g2, a2, act2, k2, t2), spec2 = _fused_inputs("MiniGrid-DoorKey-8x8-v0", 2, "cpu",
+                                                  size=56, max_steps=50)
+    assert spec2.width == fits.width
+    out = fused_step.fused_step(g2, a2, act2, k2, t2, spec2)
+    assert out[0].shape == (2, 56, 56)
 
 
 # -- on the card ------------------------------------------------------------------
@@ -258,9 +324,15 @@ def test_observations_on_the_card_go_through_the_kernel(cuda):
     ("MiniGrid-Empty-5x5-v0", {"max_steps": 14}),
     ("MiniGrid-Empty-Random-6x6-v0", {"max_steps": 14}),
     ("MiniGrid-Empty-16x16-v0", {}),
+    # a 40x40 tile takes 109 KB of dynamic shared memory
+    ("MiniGrid-DoorKey-8x8-v0", {"size": 40, "max_steps": 30}),
 ])
 def test_fused_kernel_matches_plain(cuda, env_id, overrides):
     args, spec = _fused_inputs(env_id, 512, "cpu", seed=len(env_id), **overrides)
+    _assert_fused_kernel_is_plain(cuda, args, spec)
+
+
+def _assert_fused_kernel_is_plain(cuda, args, spec):
     want = fused_step.fused_step_plain(*args, spec)
     before = fused_step.LAUNCHES
     got = fused_step.fused_step(*(a.to(cuda) for a in args), spec)
@@ -272,6 +344,80 @@ def test_fused_kernel_matches_plain(cuda, env_id, overrides):
         if w.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, fused_step.TILE - 1, fused_step.TILE + 1, 4097])
+def test_fused_kernel_ragged_batches(cuda, n):
+    """The last tile holds fewer envs than a block owns; max_steps 12 sends
+    most lanes to regeneration."""
+    args, spec = _fused_inputs("MiniGrid-DoorKey-8x8-v0", n, "cpu", seed=n, max_steps=12)
+    agent = args[1].clone()
+    agent[:, fused_step.A_CNT] = torch.arange(n, dtype=torch.int32) % 14
+    _assert_fused_kernel_is_plain(cuda, (args[0], agent, *args[2:]), spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", [3, 5, 9, 11])
+def test_fused_kernel_view_sizes(cuda, v):
+    """The generic-V instance, on an 8x8 grid and on Empty-5x5, where the
+    view runs past the grid."""
+    for env_id in ("MiniGrid-DoorKey-8x8-v0", "MiniGrid-Empty-5x5-v0"):
+        args, spec = _fused_inputs(env_id, 77, "cpu", seed=v, agent_view_size=v,
+                                   max_steps=14)
+        _assert_fused_kernel_is_plain(cuda, args, spec)
+
+
+@pytest.mark.gpu
+def test_fused_kernel_takes_tensors_off_16_byte_alignment(cuda):
+    """Contiguous inputs one word into their storage: the tile copies go
+    word by word."""
+    args, spec = _fused_inputs("MiniGrid-DoorKey-8x8-v0", 33, "cpu", max_steps=12)
+    want = fused_step.fused_step_plain(*args, spec)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        flat[1:] = x.reshape(-1).to(cuda)
+        return flat[1:].view(x.shape)
+
+    grid, agent, action = (shifted(a) for a in args[:3])
+    assert grid.data_ptr() % 16 and agent.data_ptr() % 16
+    got = fused_step.fused_step(grid, agent, action, *(a.to(cuda) for a in args[3:]), spec)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, obs_gather.TILE - 1, obs_gather.TILE + 1, 4097])
+def test_gather_kernel_ragged_batches(cuda, n):
+    r = np.random.default_rng(n)
+    grid = torch.from_numpy(random_packed(r, (n, 5, 5)))  # 25 words a row
+    pos = torch.from_numpy(r.integers(-1, 6, (n, 2)).astype(np.int32))
+    dirs = torch.from_numpy(r.integers(0, 4, n).astype(np.int32))
+    for v in (7, 3):
+        want = obs_gather.gather_view_plain(grid, pos, dirs, v)
+        got = obs_gather.gather_view(grid.to(cuda), pos.to(cuda), dirs.to(cuda), v)
+        assert torch.equal(got.cpu(), want)
+        # the same rows one word into their storage: copies go word by word
+        flat = torch.empty(grid.numel() + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = grid.reshape(-1).to(cuda)
+        got = obs_gather.gather_view(flat[1:].view(grid.shape), pos.to(cuda),
+                                     dirs.to(cuda), v)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_refuses_a_tile_over_shared_memory(cuda):
+    grid = torch.zeros((2, 61, 61), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    dirs = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        obs_gather.gather_view(grid, pos, dirs, 7)
+    big = torch.from_numpy(random_packed(np.random.default_rng(1), (20, 40, 40)))
+    pos = torch.full((20, 2), 20, dtype=torch.int32)
+    dirs = torch.arange(20, dtype=torch.int32) % 4
+    got = obs_gather.gather_view(big.to(cuda), pos.to(cuda), dirs.to(cuda), 7)
+    assert torch.equal(got.cpu(), obs_gather.gather_view_plain(big, pos, dirs, 7))
 
 
 @pytest.mark.gpu
