@@ -31,6 +31,20 @@ printing a result:
    steps (one ``fused_step`` launch a step, one ``obs_gather`` launch at
    reset, every env regenerated at least once), and the same fused program
    at B=16 on the card and on the CPU, bitwise;
+
+   then the zoo: one id of each single-room family through
+   ``make_vec(id, 4096)`` with the reset strategy and refill window the
+   family picks (checked against the JAX package's choice), driven 128
+   steps at the preset ``max_steps`` and 128 at ``max_steps=16`` with the
+   launch counts zeroed before each (one ``obs_gather`` launch per
+   observation, none of ``fused_step``), the ranges of image, direction,
+   mission and reward checked; the gather bitwise against its plain version
+   on each family's states (MultiRoom's 25x25 batch and a ragged B=4097 one
+   with the flipped-bit self-check); card == CPU at B=16 for 32 steps; each
+   family's env-steps/s with predrawn actions; MultiRoom-N6 at short
+   episodes pooled against ``conditional``; ``rollout(refill_period=8)``
+   on MultiRoom-N6; the gather's time at 25x25 against its bound; and the
+   launches per step of LavaGap and MultiRoom under ``torch.profiler``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound, time the fused step at B=32768
@@ -61,6 +75,30 @@ VIEW = 7
 RAGGED_ENVS = NUM_ENVS + 1  # the last tile of the kernels holds one env
 WIDE_ENVS = 32768
 SWEEP_SHAPES = ((8, 8, 7), (9, 5, 7), (6, 9, 5))
+
+# the zoo: one id per family, with the reset strategy and refill window the
+# JAX package picks for it at B=4096 (VectorEnv: pooled for desynchronized
+# resets from 64 envs, conditional for expensive generation, else fused;
+# pool_refill the largest divisor of 2B not above B * pool_refill_fraction)
+ZOO = (
+    ("MiniGrid-LavaGapS7-v0", "fused", 256),
+    ("MiniGrid-DistShift1-v0", "fused", 256),
+    ("MiniGrid-FourRooms-v0", "fused", 256),
+    ("MiniGrid-RedBlueDoors-8x8-v0", "fused", 256),
+    ("MiniGrid-MemoryS17Random-v0", "fused", 256),
+    ("MiniGrid-Fetch-8x8-N3-v0", "fused", 256),
+    ("MiniGrid-GoToDoor-8x8-v0", "fused", 256),
+    ("MiniGrid-GoToObject-8x8-N2-v0", "fused", 256),
+    ("MiniGrid-PutNear-8x8-N3-v0", "fused", 256),
+    ("MiniGrid-LavaCrossingS11N5-v0", "fused", 256),
+    ("MiniGrid-Dynamic-Obstacles-16x16-v0", "fused", 256),
+    ("MiniGrid-MultiRoom-N6-v0", "pooled", 32),
+)
+ZOO_STEPS = 128
+ZOO_SHORT_EPISODE = 16  # max_steps of the second walk
+ZOO_TIMED_STEPS = 32
+ZOO_ROLLOUT_STEPS = 64
+MULTIROOM = "MiniGrid-MultiRoom-N6-v0"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -359,6 +397,18 @@ def drive_main_path(dev, counters: dict) -> dict:
             "n_fresh": n_fresh, "n_stale": n_stale}
 
 
+def same_fields(a: dict, b: dict, what: str, where: str = "") -> None:
+    """Two states as numpy field dicts (nested dicts included) agree."""
+    if set(a) != set(b):
+        raise AssertionError(f"{what}{where}: fields differ")
+    for k in a:
+        if isinstance(a[k], dict):
+            same_fields(a[k], b[k], what, f"{where}{k}.")
+        elif (a[k] is None) != (b[k] is None) or (
+                a[k] is not None and not (a[k] == b[k]).all()):
+            raise AssertionError(f"{what}{where}{k} differs card vs CPU")
+
+
 def card_matches_cpu(dev) -> None:
     """The same pooled program at B=16 on the card and on the CPU: per-step
     obs, reward, terminated, truncated and the final PooledState agree
@@ -387,15 +437,7 @@ def card_matches_cpu(dev) -> None:
             if mismatches(a, b):
                 raise AssertionError(f"B=16 step {t}: {name} differs card vs CPU")
 
-    def same(a, b, where=""):
-        for k in a:
-            if isinstance(a[k], dict):
-                same(a[k], b[k], f"{where}{k}.")
-            elif (a[k] is None) != (b[k] is None) or (
-                    a[k] is not None and not (a[k] == b[k]).all()):
-                raise AssertionError(f"B=16 final state {where}{k} differs card vs CPU")
-
-    same(g_state, c_state)
+    same_fields(g_state, c_state, "B=16 final state ")
     log(f"  B=16, 32 steps: card == CPU bitwise (n_fresh {int(g_state['n_fresh'])}, "
         f"n_stale {int(g_state['n_stale'])})")
     # a random walk seldom reaches the goal: hold the reward formula itself
@@ -502,6 +544,217 @@ def fused_card_matches_cpu(dev) -> None:
         if mismatches(g_fs[k], c_fs[k]):
             raise AssertionError(f"fused B=16 final {k} differs card vs CPU")
     log(f"  fused B=16, 40 steps: card == CPU bitwise ({ends} episode ends)")
+
+
+# -- the zoo ----------------------------------------------------------------------
+
+def zoo_walk(dev, counters: dict, env_id: str, seed: int, **overrides) -> dict:
+    """``make_vec(env_id, 4096)`` at its default strategy, ZOO_STEPS steps of
+    actions drawn before the launch counts are zeroed; checks the counts and
+    the ranges of what comes out."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import bench
+
+    venv = minigrid_tpu_torch.make_vec(env_id, NUM_ENVS, device=dev, **overrides)
+    env = venv.env
+    actions = bench.draw_actions(rng.PRNGKey(seed, dev), ZOO_STEPS, NUM_ENVS,
+                                 env.num_actions)
+    codes = torch.from_numpy(env.mission_codes()).to(dev)
+    ends = torch.zeros((), dtype=torch.int64, device=dev)
+    r_lo = torch.zeros((), device=dev)
+    r_hi = torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.LAUNCHES = 0
+    t0 = time.perf_counter()
+    obs, state = venv.reset(rng.PRNGKey(seed + 1, dev))
+    for a in actions:
+        obs, state, reward, term, trunc, _ = venv.step(state, a)
+        ends += (term | trunc).sum()
+        r_lo = torch.minimum(r_lo, reward.min())
+        r_hi = torch.maximum(r_hi, reward.max())
+    ends, r_lo, r_hi = int(ends), float(r_lo), float(r_hi)
+    seconds = time.perf_counter() - t0
+    launches = {name: module.LAUNCHES for name, module in counters.items()}
+    if launches != {"obs_gather": ZOO_STEPS + 1, "fused_step": 0}:
+        raise AssertionError(f"{env_id}: launches {launches}, expected "
+                             f"{ZOO_STEPS + 1} obs_gather (one per observation)")
+    v = venv.params.agent_view_size
+    image, direction, mission = obs["image"], obs["direction"], obs["mission"]
+    if image.shape != (NUM_ENVS, v, v, 3) or image.dtype != torch.uint8:
+        raise AssertionError(f"{env_id}: image {tuple(image.shape)} {image.dtype}")
+    if not (bool((image[..., 0] <= 33).all()) and bool((image[..., 1] <= 10).all())
+            and bool((image[..., 2] <= 2).all())):
+        raise AssertionError(f"{env_id}: image fields out of range")
+    if not bool(((direction >= 0) & (direction < 4)).all()):
+        raise AssertionError(f"{env_id}: direction out of range")
+    if not bool((mission[:, None, :] == codes[None]).all(-1).any(-1).all()):
+        raise AssertionError(f"{env_id}: a mission outside the env's codes")
+    floor = -1.0 if "Dynamic-Obstacles" in env_id else 0.0
+    if not (floor <= r_lo and r_hi <= 1.0):
+        raise AssertionError(f"{env_id}: reward outside [{floor}, 1]: {r_lo}..{r_hi}")
+    envs = state.envs if hasattr(state, "envs") else state
+    return {"venv": venv, "envs": envs, "ends": ends, "seconds": seconds,
+            "reward": (r_lo, r_hi), "launches": launches}
+
+
+def check_zoo_gather(obs_gather, envs, view: int, what: str, flip: bool) -> int:
+    """The gather kernel against its plain version on a batch of states."""
+    args = (envs.grid, envs.agent_pos, envs.agent_dir, view)
+    got = obs_gather.gather_view(*args)
+    want = obs_gather.gather_view_plain(*args)
+    torch.cuda.synchronize()
+    bad = mismatches(got, want)
+    if bad:
+        raise AssertionError(f"obs_gather kernel != plain on {what}: {bad} cells")
+    if flip:
+        check_flipped_bit(got, want, f"the window of {what}")
+    return max_abs_err(got, want)
+
+
+def zoo_card_matches_cpu(dev, env_id: str, seed: int) -> int:
+    """B=16 for 32 steps with max_steps 8 on the card and on the CPU: per-step
+    observation, reward bits and flags, and the final state (``extra`` and a
+    pooled ring included) agree bitwise.  Returns the episode ends."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import bench
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    actions = bench.draw_actions(rng.PRNGKey(seed, "cpu"), 32, 16, 8)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        venv = minigrid_tpu_torch.make_vec(env_id, 16, device=d, max_steps=8)
+        _, state = venv.reset(rng.PRNGKey(seed, d))
+        steps = []
+        for a in actions:
+            obs, state, r, te, tr, _ = venv.step(state, a.to(d))
+            steps.append([obs["image"].cpu(), obs["direction"].cpu(),
+                          obs["mission"].cpu(), r.cpu().view(torch.int32), te.cpu(),
+                          tr.cpu()])
+        runs.append((steps, state_to_numpy(state)))
+    (g_steps, g_state), (c_steps, c_state) = runs
+    ends = 0
+    for t, (g, c) in enumerate(zip(g_steps, c_steps)):
+        for name, a, b in zip(("image", "direction", "mission", "reward bits",
+                               "terminated", "truncated"), g, c):
+            if mismatches(a, b):
+                raise AssertionError(f"{env_id} B=16 step {t}: {name} differs "
+                                     f"card vs CPU")
+        ends += int((c[4] | c[5]).sum())
+    same_fields(g_state, c_state, f"{env_id} B=16 final state ")
+    return ends
+
+
+def drive_zoo(dev, counters: dict, obs_gather, card: str) -> dict:
+    """Every family of ZOO on the card; returns what the kernel table and
+    PERF.md read."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import bench
+
+    worst, out = 0, {"rates": {}}
+    for i, (env_id, strategy, refill) in enumerate(ZOO):
+        t_family = time.perf_counter()
+        walk = zoo_walk(dev, counters, env_id, seed=100 + i)
+        venv = walk["venv"]
+        if (venv.reset_strategy, venv.pool_refill) != (strategy, refill):
+            raise AssertionError(f"{env_id}: strategy {venv.reset_strategy}/"
+                                 f"{venv.pool_refill}, the JAX package picks "
+                                 f"{strategy}/{refill}")
+        short = zoo_walk(dev, counters, env_id, seed=200 + i,
+                         max_steps=ZOO_SHORT_EPISODE)
+        if short["ends"] < 4 * NUM_ENVS:
+            raise AssertionError(f"{env_id}: only {short['ends']} episode ends in "
+                                 f"{ZOO_STEPS} steps at max_steps {ZOO_SHORT_EPISODE}")
+        v = venv.params.agent_view_size
+        w, h = venv.params.width, venv.params.height
+        is_multiroom = env_id == MULTIROOM
+        worst = max(worst, check_zoo_gather(obs_gather, short["envs"], v,
+                                            f"{env_id} B={NUM_ENVS}", is_multiroom))
+        ends16 = zoo_card_matches_cpu(dev, env_id, seed=300 + i)
+        rate = bench.measure_steps(venv, ZOO_TIMED_STEPS)
+        out["rates"][env_id] = rate
+        log(f"  {env_id} {w}x{h}{' see-through' if venv.params.see_through_walls else ''}"
+            f": {venv.reset_strategy}, pool_refill {venv.pool_refill} (as the JAX "
+            f"package picks); {ZOO_STEPS} steps at max_steps {venv.env.max_steps}: "
+            f"{walk['ends']} episode ends, {walk['seconds']:.2f} s; at max_steps "
+            f"{ZOO_SHORT_EPISODE}: {short['ends']} ends, {short['seconds']:.2f} s; "
+            f"launches {short['launches']} each walk; rewards in [{walk['reward'][0]}, "
+            f"{max(walk['reward'][1], short['reward'][1])}]; gather bitwise; "
+            f"B=16 card == CPU ({ends16} ends); "
+            f"{rate['env_steps_per_sec']:.0f} env-steps/s, {rate['us_per_step']:.1f} "
+            f"us/step ({rate['strategy']}, predrawn, {ZOO_TIMED_STEPS} steps"
+            f"{', fresh fraction ' + str(rate.get('fresh_frac')) if 'fresh_frac' in rate else ''}"
+            f"); {time.perf_counter() - t_family:.1f} s [{card}]")
+        if is_multiroom:
+            out["multiroom_inputs"] = {"grid": short["envs"].grid,
+                                       "pos": short["envs"].agent_pos,
+                                       "dir": short["envs"].agent_dir}
+
+    # MultiRoom at short episodes, pooled against conditional (a host read
+    # of `done` every step, then generation for just the finished envs)
+    for strategy in ("pooled", "conditional"):
+        rate = bench.measure_steps(minigrid_tpu_torch.make_vec(
+            MULTIROOM, NUM_ENVS, device=dev, reset_strategy=strategy,
+            max_steps=ZOO_SHORT_EPISODE), ZOO_TIMED_STEPS)
+        out["rates"][f"{MULTIROOM} {strategy}, max_steps {ZOO_SHORT_EPISODE}"] = rate
+        log(f"  {MULTIROOM} B={NUM_ENVS} {strategy}, max_steps {ZOO_SHORT_EPISODE}: "
+            f"{rate['env_steps_per_sec']:.0f} env-steps/s, {rate['us_per_step']:.1f} "
+            f"us/step (predrawn, {ZOO_TIMED_STEPS} steps"
+            f"{', fresh fraction ' + str(rate.get('fresh_frac')) if 'fresh_frac' in rate else ''}"
+            f") [{card}]")
+
+    # a ragged 25x25 batch: one env in the last tile
+    env = minigrid_tpu_torch.make(MULTIROOM)
+    k_gen, k_act = rng.split(rng.PRNGKey(7, dev)).unbind(0)
+    st = env.generate(rng.split(k_gen, RAGGED_ENVS), env.default_params, dev)
+    for k in rng.split(k_act, 8):
+        st = env.step_state(st, rng.randint(k, (RAGGED_ENVS,), 0, 8),
+                            env.default_params)[0]
+    worst = max(worst, check_zoo_gather(obs_gather, st, VIEW,
+                                        f"{MULTIROOM} B={RAGGED_ENVS}", True))
+    log(f"  {MULTIROOM} 25x25 gather: bitwise at B={NUM_ENVS} and B={RAGGED_ENVS}, "
+        f"flipped-bit self-checks caught")
+
+    # rollout with bulk refills, pooled; short episodes, so the ring serves
+    env = minigrid_tpu_torch.make(MULTIROOM, max_steps=ZOO_SHORT_EPISODE)
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.LAUNCHES = 0
+    t0 = time.perf_counter()
+    st, traj = minigrid_tpu_torch.rollout(env, None, rng.PRNGKey(9, dev), NUM_ENVS,
+                                          ZOO_ROLLOUT_STEPS, refill_period=8,
+                                          device=dev)
+    n_fresh, n_stale = int(st.n_fresh), int(st.n_stale)
+    seconds = time.perf_counter() - t0
+    ends = int((traj["terminated"] | traj["truncated"]).sum())
+    if (traj["action"].shape != (ZOO_ROLLOUT_STEPS, NUM_ENVS)
+            or obs_gather.LAUNCHES != ZOO_ROLLOUT_STEPS + 1
+            or not bool(torch.isfinite(traj["reward"]).all())
+            or n_fresh + n_stale != ends or n_fresh == 0):
+        raise AssertionError(f"rollout: {tuple(traj['action'].shape)}, "
+                             f"{obs_gather.LAUNCHES} gathers, {ends} ends, "
+                             f"fresh {n_fresh} stale {n_stale}")
+    log(f"  rollout({MULTIROOM}, max_steps {ZOO_SHORT_EPISODE}, B={NUM_ENVS}, "
+        f"{ZOO_ROLLOUT_STEPS} steps, refill_period=8, pooled at the family's window): "
+        f"{seconds:.2f} s, {ZOO_ROLLOUT_STEPS + 1} gathers, auto-resets fresh "
+        f"{n_fresh} stale {n_stale} [{card}]")
+
+    # launches per step of a cheap family and of MultiRoom
+    out["profiles"] = {}
+    for env_id in ("MiniGrid-LavaGapS7-v0", MULTIROOM):
+        prof = bench.profile_steps(minigrid_tpu_torch.make_vec(env_id, NUM_ENVS,
+                                                               device=dev), 8)
+        out["profiles"][env_id] = prof
+        log(f"  {env_id} B={NUM_ENVS} {prof['strategy']} under torch.profiler, 8 "
+            f"steps: {prof['launches_per_step']:.1f} launches/step, device busy "
+            f"{prof['device_busy_us_per_step']:.1f} us/step of "
+            f"{prof['wall_us_per_step']:.1f} wall, idle share "
+            f"{prof['device_idle_share']:.3f} [{card}]")
+    out["max_abs_err"] = worst
+    return out
 
 
 # -- phase 5: times ---------------------------------------------------------------
@@ -629,6 +882,10 @@ def main() -> int:
     fused_main = drive_fused_path(dev, counters)
     fused_card_matches_cpu(dev)
 
+    log("phase 4b: the zoo")
+    zoo = drive_zoo(dev, counters, obs_gather, card)
+    err = max(err, zoo["max_abs_err"])
+
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)
     bound_ms, bound_by, work = gather_bound_ms(inputs)
@@ -636,6 +893,15 @@ def main() -> int:
         f"plain {times['plain_ms'] * 1e3:.2f} us, torch.gather "
         f"{times['library_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
         f"({bound_by}; {work}), {bound_ms / times['ms']:.3f} of the bound [{card}]")
+
+    mr = zoo["multiroom_inputs"]
+    mr_times = time_gather(obs_gather, mr)
+    mr_bound, mr_by, mr_work = gather_bound_ms(mr)
+    log(f"  obs_gather B={NUM_ENVS} 25x25 V={VIEW} ({MULTIROOM} states): kernel "
+        f"{mr_times['ms'] * 1e3:.2f} us, plain {mr_times['plain_ms'] * 1e3:.2f} us, "
+        f"torch.gather {mr_times['library_ms'] * 1e3:.2f} us, bound "
+        f"{mr_bound * 1e3:.3f} us ({mr_by}; {mr_work}), "
+        f"{mr_bound / mr_times['ms']:.3f} of the bound [{card}]")
 
     fused_times = time_fused(fused_step, fused_args, fused_spec)
     fused_out = fused_step.fused_step_plain(*fused_args, fused_spec)

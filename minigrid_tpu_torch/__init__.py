@@ -2,9 +2,10 @@
 
 The port keeps the JAX package's module layout and semantics: packed int32
 cell words, a branchless batched step, the egocentric observation (its window
-gather a hand-written CUDA kernel), the vectorized auto-reset engine, and
-``FusedVectorEnv``, whose whole step (auto-reset and observation included) is
-one hand-written CUDA kernel.  Entry points run on CUDA unless the caller
+gather a hand-written CUDA kernel), the single-room MiniGrid families, the
+vectorized auto-reset engine with its three reset strategies and ``rollout``,
+and ``FusedVectorEnv``, whose whole step (auto-reset and observation
+included) is one hand-written CUDA kernel.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
     import minigrid_tpu_torch as mgt
@@ -24,8 +25,8 @@ from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.state import EnvParams, EnvState
 from minigrid_tpu_torch.core.step import NUM_ACTIONS, Actions
 from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
-from minigrid_tpu_torch.parallel.vector import VectorEnv
-from minigrid_tpu_torch.registry import make, make_vec, register, registered_ids
+from minigrid_tpu_torch.parallel.vector import VectorEnv, rollout
+from minigrid_tpu_torch.registry import make, make_vec, register, registered_ids, spec
 
 import minigrid_tpu_torch.envs  # noqa: F401  (populates the registry)
 
@@ -41,4 +42,6 @@ __all__ = [
     "make_vec",
     "register",
     "registered_ids",
+    "rollout",
+    "spec",
 ]

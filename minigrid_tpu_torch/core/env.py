@@ -10,8 +10,12 @@ Every method works on a whole batch of envs:
 
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
+from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.obs import gen_obs_batch
 from minigrid_tpu_torch.core.state import EnvParams, EnvState
 from minigrid_tpu_torch.core.step import (
@@ -25,7 +29,12 @@ from minigrid_tpu_torch.core.step import (
 
 class Env:
     """Base functional env.  Subclasses implement :meth:`generate` and may
-    override :meth:`post_step` for task rewards and termination."""
+    override :meth:`post_step` for task rewards and termination.
+
+    A family may declare ``expensive_generation``, ``desynchronized_resets``
+    and ``pool_refill_fraction`` as class attributes; the batch engine reads
+    them with ``getattr`` to choose its reset strategy, as the JAX package's
+    does, so the base class defines none of them."""
 
     name: str = "MiniGridEnv"
     num_actions: int = NUM_ACTIONS
@@ -38,6 +47,7 @@ class Env:
         max_steps: int = 100,
         see_through_walls: bool = False,
         agent_view_size: int = 7,
+        **kwargs: Any,
     ):
         if grid_size is not None:
             if width is not None or height is not None:
@@ -116,3 +126,20 @@ class Env:
     # -- reward helper -----------------------------------------------------
     def task_reward(self, state: EnvState, params: EnvParams) -> torch.Tensor:
         return goal_reward(state.step_count, episode_limit(state, params))
+
+    # -- missions ----------------------------------------------------------
+    def mission_text(self, mission) -> str:
+        """One env's packed mission code as the reference's string."""
+        return ""
+
+    def mission_codes(self) -> np.ndarray:
+        """Every mission code this env can emit, int32[M, 4]; by default the
+        single zero code of a fixed-mission env."""
+        return np.zeros((1, 4), dtype=np.int32)
+
+    # -- convenience -------------------------------------------------------
+    def split_rng(self, state: EnvState) -> tuple[EnvState, torch.Tensor]:
+        """Draw one subkey per env from the state's stream (for stochastic
+        steps): ``rng, sub = split(rng)``."""
+        keys, sub = rng.split(state.rng).unbind(-2)
+        return state.replace(rng=keys), sub

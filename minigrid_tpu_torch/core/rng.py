@@ -12,7 +12,9 @@ reproduces the calls they make, bit for bit, as jax 0.9 computes them with
 * 32-bit ``bits`` is ``bits1 ^ bits2`` of ``_threefry_random_bits_partitionable``
   over the same iota counters;
 * ``randint`` is ``jax.random._randint``: two bit draws from ``split(key)``,
-  unsigned span arithmetic, ``span = 1`` when ``maxval <= minval``.
+  unsigned span arithmetic, ``span = 1`` when ``maxval <= minval``;
+* ``permutation(key, n)`` is ``jax.random._shuffle`` of ``arange(n)``: per
+  round ``key, sub = split(key)`` and a stable sort by ``bits(sub, (n,))``.
 
 A key is a pair of uint32 words.  torch has no full uint32 arithmetic, so keys
 and intermediate words are int64 holding values in [0, 2^32), masked after
@@ -131,3 +133,21 @@ def randint(keys: torch.Tensor, shape: tuple, minval, maxval) -> torch.Tensor:
     # int32 add with wraparound, as jax adds in the sampling dtype
     out = ((lo + offset + (1 << 31)) & _M32) - (1 << 31)
     return out.to(torch.int32)
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``[..., 2]`` keys -> int32
+    ``[..., n]``, each row a permutation of ``range(n)``.
+
+    ``ceil(3 ln(max(1, n)) / ln(2^32 - 1))`` rounds (one below n of about
+    1,600); each round splits the key and sorts the row stably by fresh
+    32-bit words, as ``lax.sort_key_val`` does."""
+    n = int(n)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+    x = torch.arange(n, dtype=torch.int32, device=keys.device)
+    x = x.expand(keys.shape[:-1] + (n,))
+    for _ in range(rounds):
+        keys, sub = split(keys).unbind(-2)
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = x.gather(-1, order)
+    return x.contiguous()

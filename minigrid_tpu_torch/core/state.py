@@ -9,18 +9,23 @@ carry: it lives in a parallel ``box_contains`` plane, and a matching
 ``carrying_contains`` triple follows a carried box.  Families whose cells can
 never hold a box (DoorKey) leave both as ``None``, and the step skips the box
 logic.
+
+``extra`` holds what a family keeps beside the grid (door positions, targets,
+obstacles): ``None``, a tensor, or a dict of tensors (dicts may nest), every
+tensor with the leading dim B.  :func:`map_fields` walks into it, so the batch
+engine's selects and ring copies carry it like any other field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from minigrid_tpu_torch.core.constants import EMPTY_TRIPLE
-from minigrid_tpu_torch.core.grid_ops import const_triple, pack_word
+from minigrid_tpu_torch.core.grid_ops import const, const_triple, pack_word
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,6 +56,7 @@ class EnvState:
     rng: torch.Tensor  # int64[B, 2] — threefry key words (uint32 values)
     mission: torch.Tensor  # int32[B, 4] — packed mission code
     max_steps: torch.Tensor  # int32[B] — per-episode limit; 0 = params.max_steps
+    extra: Any = None  # None, a tensor or a dict of tensors, leading dim B
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -67,14 +73,24 @@ class EnvParams:
     see_through_walls: bool = False
 
 
+def map_tree(fn: Callable, *trees):
+    """Apply ``fn`` leaf by leaf across trees of one structure: ``None``,
+    a tensor, or a dict of trees."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
 def map_fields(fn: Callable, *states):
     """Apply ``fn`` field by field across dataclass states of one type,
-    skipping fields that are ``None``."""
+    skipping fields that are ``None`` and walking into dict fields."""
     first = states[0]
     out = {}
     for f in dataclasses.fields(first):
-        vals = [getattr(s, f.name) for s in states]
-        out[f.name] = None if vals[0] is None else fn(*vals)
+        out[f.name] = map_tree(fn, *(getattr(s, f.name) for s in states))
     return type(first)(**out)
 
 
@@ -89,6 +105,12 @@ def no_object(batch: int, device) -> torch.Tensor:
     return const_triple(EMPTY_TRIPLE, device).expand(batch, 3).clone()
 
 
+def fixed_pose(n: int, pos, direction: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same start (x, y) and direction for n envs: int32[n, 2], int32[n]."""
+    return (const(pos, device, torch.int32).repeat(n, 1),
+            torch.full((n,), direction, dtype=torch.int32, device=device))
+
+
 def base_state(
     grid: torch.Tensor,
     agent_pos: torch.Tensor,
@@ -96,28 +118,33 @@ def base_state(
     rng: torch.Tensor,
     mission: torch.Tensor | None = None,
     box_contains: torch.Tensor | None = None,
+    extra: Any = None,
     max_steps=0,
     has_boxes: bool = True,
 ) -> EnvState:
     """A fresh batch of states at step 0.  ``has_boxes=False`` drops the
-    ``box_contains``/``carrying_contains`` planes."""
+    ``box_contains``/``carrying_contains`` planes; ``extra`` passes
+    through."""
     b, w, h = grid.shape
     dev = grid.device
     if box_contains is None and has_boxes:
         box_contains = empty_grid(w, h, dev, (b,))
     if mission is None:
         mission = torch.zeros((b, 4), dtype=torch.int32, device=dev)
+    # the kernels take contiguous tensors; a generator's draws are often
+    # slices of one batched draw
     return EnvState(
-        grid=grid,
+        grid=grid.contiguous(),
         box_contains=box_contains,
-        agent_pos=agent_pos.to(torch.int32),
-        agent_dir=agent_dir.to(torch.int32),
+        agent_pos=agent_pos.to(torch.int32).contiguous(),
+        agent_dir=agent_dir.to(torch.int32).contiguous(),
         carrying=no_object(b, dev),
         carrying_contains=no_object(b, dev) if has_boxes else None,
         step_count=torch.zeros((b,), dtype=torch.int32, device=dev),
         terminated=torch.zeros((b,), dtype=torch.bool, device=dev),
         truncated=torch.zeros((b,), dtype=torch.bool, device=dev),
-        rng=rng,
-        mission=mission.to(torch.int32),
+        rng=rng.contiguous(),
+        mission=mission.to(torch.int32).contiguous(),
         max_steps=torch.full((b,), max_steps, dtype=torch.int32, device=dev),
+        extra=map_tree(lambda t: t.contiguous(), extra),
     )

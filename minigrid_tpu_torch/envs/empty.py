@@ -22,6 +22,7 @@ from minigrid_tpu_torch.core.state import (
     EnvState,
     base_state,
     empty_grid,
+    fixed_pose,
     resolve_device,
 )
 
@@ -52,10 +53,8 @@ class EmptyEnv(Env):
 
         _, k_pos, k_dir, k_state = rng.split(keys, 4).unbind(1)
         if self.agent_start_pos is not None:
-            pos = torch.tensor(self.agent_start_pos, dtype=torch.int32,
-                               device=dev).repeat(n, 1)
-            direction = torch.full((n,), self.agent_start_dir, dtype=torch.int32,
-                                   device=dev)
+            pos, direction = fixed_pose(n, self.agent_start_pos,
+                                        self.agent_start_dir, dev)
         else:
             _, pos, _ = G.place_obj(k_pos, grid, None)
             direction = rng.randint(k_dir, (), 0, 4)

@@ -1,16 +1,30 @@
 """Vectorized env batch with auto-reset.
 
 Counterpart of ``minigrid_tpu/parallel/vector.py``: B lockstep envs, each
-finished episode replaced on the device by a new level, with no host round
-trip.  Two reset strategies are ported:
+finished episode replaced on the device by a new level.  Three reset
+strategies, chosen from the family's class attributes as the JAX package
+chooses them unless the caller names one:
 
 * ``fused`` (the default): regenerate every env from its own stream each step
-  and select the finished ones;
-* ``pooled``: consume pre-generated levels from a 2B-slot ring and refill it
-  in contiguous windows, in the best-effort mode (an env that finds both of
-  its slots spent replays its primary slot's previous level, a "stale
-  replay").  ``step_nofill`` + ``refill(K)`` every K steps is the program the
-  benchmark drives.
+  and select the finished ones; no host round trip;
+* ``conditional`` (families with ``expensive_generation``): regenerate only
+  when an env finished.  Eager torch has no device-side branch, so the step
+  reads ``done`` on the host (one sync) and regenerates just the finished
+  envs; the levels are the ones the JAX package's batch-level ``cond``
+  gives;
+* ``pooled`` (families with ``desynchronized_resets``, from 64 envs):
+  consume pre-generated levels from a 2B-slot ring and refill it in
+  contiguous windows of ``pool_refill`` (B times the family's
+  ``pool_refill_fraction``, 1/16 by default).  In the default best-effort
+  mode an env that finds both of its slots spent replays its primary slot's
+  previous level (a "stale replay"); with ``strict_refill=True`` it
+  regenerates from its own stream instead, and every served level is fresh.
+  ``step_nofill`` + ``refill(K)`` every K steps is the program the benchmark
+  drives.
+
+``final_obs=True`` adds the observation of the state each step ended in,
+before the auto-reset, as ``info["final_obs"]``.  :func:`rollout` drives B
+envs for T steps and returns the stacked trajectory.
 
 Every random draw comes from the threefry twin, so a run is bitwise the JAX
 package's run for the same key and actions.
@@ -61,6 +75,25 @@ class PooledState:
         return dataclasses.replace(self, **changes)
 
 
+def default_strategy(env: Env, num_envs: int) -> str:
+    """The reset strategy the JAX package picks for ``env`` at ``num_envs``:
+    ``pooled`` for desynchronized episode ends from 64 envs, ``conditional``
+    for expensive generation, ``fused`` otherwise."""
+    if getattr(env, "desynchronized_resets", False) and num_envs >= 64:
+        return "pooled"
+    if getattr(env, "expensive_generation", False):
+        return "conditional"
+    return "fused"
+
+
+def default_pool_refill(env: Env, num_envs: int) -> int:
+    """Refill window of the pooled ring: the largest divisor of the ring
+    size 2B not above ``max(16, B * pool_refill_fraction)`` (capped at 2B)."""
+    frac = getattr(env, "pool_refill_fraction", 1 / 16)
+    target = min(2 * num_envs, max(16, int(num_envs * frac)))
+    return max(c for c in range(1, target + 1) if (2 * num_envs) % c == 0)
+
+
 class VectorEnv:
     """B lockstep instances of one env family on one device.
 
@@ -75,29 +108,30 @@ class VectorEnv:
     """
 
     def __init__(self, env: Env, num_envs: int, params: EnvParams | None = None,
-                 auto_reset: bool = True, reset_strategy: str | None = None,
-                 pool_refill: int | None = None, device=None):
+                 auto_reset: bool = True, final_obs: bool = False,
+                 reset_strategy: str | None = None,
+                 pool_refill: int | None = None, strict_refill: bool = False,
+                 device=None):
         self.env = env
         self.num_envs = num_envs
         self.params = params if params is not None else env.default_params
         self.device = resolve_device(device)
         self.auto_reset = auto_reset
-        reset_strategy = reset_strategy or "fused"
-        if reset_strategy not in ("fused", "pooled"):
-            raise NotImplementedError(
-                f"reset_strategy {reset_strategy!r} is not ported yet")
+        self.final_obs = final_obs
+        if reset_strategy is None:
+            reset_strategy = default_strategy(env, num_envs)
+        if reset_strategy not in ("fused", "conditional", "pooled"):
+            raise ValueError(f"unknown reset_strategy {reset_strategy!r}")
         self.reset_strategy = reset_strategy
         self._pooled = reset_strategy == "pooled" and auto_reset
         self.pool_size = 2 * num_envs
         if pool_refill is None:
-            target = min(2 * num_envs, max(16, num_envs // 16))
-            # largest divisor of the ring size not exceeding the target
-            pool_refill = max(
-                c for c in range(1, target + 1) if (2 * num_envs) % c == 0)
+            pool_refill = default_pool_refill(env, num_envs)
         if reset_strategy == "pooled" and (2 * num_envs) % pool_refill:
             raise ValueError(
                 f"pool_refill={pool_refill} must divide 2*num_envs={2 * num_envs}")
         self.pool_refill = pool_refill
+        self.best_effort = not strict_refill and reset_strategy == "pooled"
 
     # -- helpers -----------------------------------------------------------
     def _gen_many(self, keys: torch.Tensor) -> EnvState:
@@ -108,6 +142,28 @@ class VectorEnv:
 
     def _step_envs(self, envs: EnvState, action: torch.Tensor):
         return self.env.step_state(envs, action.to(self.device), self.params)
+
+    def _regen_all(self, ns: EnvState, mask: torch.Tensor) -> EnvState:
+        """Every env regenerated from its own stream, kept where ``mask``:
+        no host round trip, B-wide generation."""
+        keys = rng.split(ns.rng)[:, 0]
+        return tree_select(mask, self._gen_many(keys), ns)
+
+    def _regen_some(self, ns: EnvState, mask: torch.Tensor) -> EnvState:
+        """The envs of ``mask`` regenerated from their own streams: one host
+        read of the mask, then generation for just those envs.  The levels
+        are the ones :meth:`_regen_all` gives."""
+        idx = mask.nonzero()[:, 0]
+        if idx.numel() == 0:
+            return ns
+        keys = rng.split(ns.rng.index_select(0, idx))[:, 0]
+        fresh = self._gen_many(keys)
+        return map_fields(lambda x, y: x.index_copy(0, idx, y), ns, fresh)
+
+    def _finish(self, next_state: EnvState, new_state: EnvState, state,
+                reward, terminated, truncated):
+        info = {"final_obs": self._obs(next_state)} if self.final_obs else {}
+        return self._obs(new_state), state, reward, terminated, truncated, info
 
     # -- API ---------------------------------------------------------------
     def reset(self, key: torch.Tensor):
@@ -147,9 +203,12 @@ class VectorEnv:
                 state, action)
             done = terminated | truncated
             # each env's own stream: regenerate from split(rng)[0]
-            keys = rng.split(next_state.rng)[:, 0]
-            new_state = tree_select(done, self._gen_many(keys), next_state)
-            return self._obs(new_state), new_state, reward, terminated, truncated, {}
+            if self.reset_strategy == "conditional":
+                new_state = self._regen_some(next_state, done)
+            else:
+                new_state = self._regen_all(next_state, done)
+            return self._finish(next_state, new_state, new_state, reward,
+                                terminated, truncated)
         obs, state, reward, terminated, truncated, info = self.step_nofill(
             state, action)
         return obs, self.refill(state, 1), reward, terminated, truncated, info
@@ -165,7 +224,8 @@ class VectorEnv:
         new_state = state.replace(envs=new_envs, fresh=flags,
                                   n_fresh=state.n_fresh + d_fresh,
                                   n_stale=state.n_stale + d_stale)
-        return self._obs(new_envs), new_state, reward, terminated, truncated, {}
+        return self._finish(next_state, new_envs, new_state, reward, terminated,
+                            truncated)
 
     def refill(self, state: PooledState, windows: int = 1) -> PooledState:
         """Write ``windows`` refill windows (``windows * pool_refill`` fresh
@@ -178,8 +238,10 @@ class VectorEnv:
     def _consume(self, pool: EnvState, flags: torch.Tensor,
                  next_state: EnvState, done: torch.Tensor):
         """Done envs take a level from their slot pair: primary slot b, else
-        secondary b+B, else a stale replay of slot b.  Returns (new envs,
-        updated freshness flags, fresh consumes, stale consumes)."""
+        secondary b+B, else (best effort) a stale replay of slot b or
+        (strict) a level regenerated from the env's own stream.  Returns
+        (new envs, updated freshness flags, fresh consumes, stale
+        consumes)."""
         b = self.num_envs
         lo = map_fields(lambda p: p[:b], pool)
         hi = map_fields(lambda p: p[b:], pool)
@@ -189,10 +251,18 @@ class VectorEnv:
         flags_next = torch.cat([f_lo & ~use_lo, f_hi & ~use_hi])
         served = use_lo | use_hi
         d_fresh = served.sum(dtype=torch.int32)
-        d_stale = (done & ~served).sum(dtype=torch.int32)
         fresh_states = tree_select(use_hi, hi, lo)
-        return (tree_select(done, fresh_states, next_state), flags_next,
-                d_fresh, d_stale)
+        if self.best_effort:
+            d_stale = (done & ~served).sum(dtype=torch.int32)
+            return (tree_select(done, fresh_states, next_state), flags_next,
+                    d_fresh, d_stale)
+        # strict: an env that missed both slots regenerates, without a host
+        # round trip, so every served level is fresh
+        uncovered = done & ~served
+        new_envs = self._regen_all(tree_select(served, fresh_states, next_state),
+                                   uncovered)
+        return (new_envs, flags_next, d_fresh + uncovered.sum(dtype=torch.int32),
+                torch.zeros((), dtype=torch.int32, device=done.device))
 
     def _refill_windows(self, pool: EnvState, flags: torch.Tensor,
                         tick: torch.Tensor, key: torch.Tensor, windows: int):
@@ -215,3 +285,49 @@ class VectorEnv:
         pool = map_fields(lambda p, x: p.index_copy(0, idx, x), pool, cand)
         flags = flags.index_fill(0, idx, True)
         return pool, flags, tick + windows, key
+
+
+def rollout(env: Env, params: EnvParams | None, key: torch.Tensor, num_envs: int,
+            num_steps: int, policy=None, refill_period: int = 1, **venv_kwargs):
+    """B envs x T steps: reset from ``split(key)[1]``, then one step per key
+    of ``split(split(key)[0], T)``.  Returns (final state, trajectory: a dict
+    of ``action``, ``reward``, ``terminated``, ``truncated`` stacked
+    ``[T, B]``).
+
+    ``policy(key, obs) -> int32[B]`` defaults to uniform random actions.
+    ``refill_period=K`` (pooled strategy only) runs T/K blocks of K
+    consume-only steps and one K-window refill, as the JAX ``rollout``'s
+    nested scan does.  ``venv_kwargs`` go to :class:`VectorEnv` (``device``
+    among them)."""
+    venv = VectorEnv(env, num_envs, params, **venv_kwargs)
+    if policy is None:
+        def policy(k, obs):
+            return rng.randint(k, (num_envs,), 0, env.num_actions)
+
+    key, k_reset = rng.split(key.to(venv.device)).unbind(0)
+    obs, state = venv.reset(k_reset)
+    keys = rng.split(key, num_steps)
+    if refill_period > 1:
+        if not (venv.reset_strategy == "pooled" and venv.auto_reset):
+            raise ValueError("refill_period requires the pooled reset strategy")
+        if num_steps % refill_period:
+            raise ValueError(f"num_steps={num_steps} is not a multiple of "
+                             f"refill_period={refill_period}")
+        n = min(refill_period * venv.pool_refill, 2 * num_envs)
+        if (2 * num_envs) % n:
+            raise ValueError(
+                f"refill_period*pool_refill = {refill_period * venv.pool_refill} "
+                f"must divide the pool ring size {2 * num_envs} (or exceed it)")
+    traj = {name: [] for name in ("action", "reward", "terminated", "truncated")}
+    for t in range(num_steps):
+        action = policy(keys[t], obs)
+        if refill_period > 1:
+            obs, state, reward, terminated, truncated, _ = venv.step_nofill(
+                state, action)
+            if (t + 1) % refill_period == 0:
+                state = venv.refill(state, refill_period)
+        else:
+            obs, state, reward, terminated, truncated, _ = venv.step(state, action)
+        for name, v in zip(traj, (action, reward, terminated, truncated)):
+            traj[name].append(v)
+    return state, {name: torch.stack(v) for name, v in traj.items()}

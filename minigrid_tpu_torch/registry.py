@@ -37,17 +37,25 @@ def make(id: str, **overrides: Any) -> Env:
 
 
 def make_vec(id: str, num_envs: int, *, params=None, auto_reset: bool = True,
-             reset_strategy: str | None = None, pool_refill: int | None = None,
+             final_obs: bool = False, reset_strategy: str | None = None,
+             pool_refill: int | None = None, strict_refill: bool = False,
              device=None, **overrides: Any):
     """A ``VectorEnv`` of ``num_envs`` lockstep instances of the preset, on
-    ``device`` (CUDA unless named).  Env-constructor overrides pass through
-    ``**overrides``."""
+    ``device`` (CUDA unless named).  The reset strategy and the refill window
+    default to the family's, as in the JAX package; env-constructor
+    overrides pass through ``**overrides``."""
     from minigrid_tpu_torch.parallel.vector import VectorEnv
 
     return VectorEnv(make(id, **overrides), num_envs, params,
-                     auto_reset=auto_reset, reset_strategy=reset_strategy,
-                     pool_refill=pool_refill, device=device)
+                     auto_reset=auto_reset, final_obs=final_obs,
+                     reset_strategy=reset_strategy, pool_refill=pool_refill,
+                     strict_refill=strict_refill, device=device)
 
 
 def registered_ids() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def spec(id: str) -> EnvSpec:
+    """The registered (class, preset kwargs) of ``id``."""
+    return _REGISTRY[id]

@@ -18,11 +18,17 @@ auto-reset (regeneration from the env's own generator) fused in.  With
 from one ``randint`` over ``[T, B]`` drawn before the timer starts, so the
 two engines compare like with like.
 
+``--env ID`` times another registered env instead, through ``VectorEnv.step``
+with the reset strategy and refill window the family picks by default (a
+pooled family refills one window a step), the actions predrawn.
+
 Prints one JSON line.  Run on the card:
 
     python -m minigrid_tpu_torch.tools.bench [--steps 4096] [--predrawn]
     python -m minigrid_tpu_torch.tools.bench --fused [--steps 4096]
     python -m minigrid_tpu_torch.tools.bench [--fused] --profile 64
+    python -m minigrid_tpu_torch.tools.bench --env MiniGrid-MultiRoom-N6-v0 \
+        [--steps 256 | --profile 16]
 
 ``--profile N`` traces N steady-state steps with ``torch.profiler`` instead
 and prints where the time goes: kernel launches per step, device busy time
@@ -141,6 +147,44 @@ def loop_fused(fvenv: FusedVectorEnv, fs: dict, actions: torch.Tensor,
         if on_step is not None:
             on_step(obs, reward, term, trunc)
     return acc, fs
+
+
+def loop_steps(venv: VectorEnv, state, actions: torch.Tensor,
+               on_step=None) -> tuple[torch.Tensor, object]:
+    """One ``venv.step`` (any reset strategy) per row of ``actions``
+    int32[T, B], folding the checksum of :func:`loop`.  Returns (checksum,
+    final state)."""
+    acc = torch.zeros((), dtype=torch.float32, device=venv.device)
+    for action in actions:
+        obs, state, reward, term, trunc, _ = venv.step(state, action)
+        acc = fold(acc, obs, reward, term, trunc)
+        if on_step is not None:
+            on_step(obs, reward, term, trunc)
+    return acc, state
+
+
+def measure_steps(venv: VectorEnv, num_steps: int, reps: int = 2) -> dict:
+    """Env-steps/s of :func:`loop_steps`, actions predrawn: the reset and
+    the action draw of each rep happen before its timer starts; best of
+    ``reps``."""
+    _, state = venv.reset(rng.PRNGKey(0, venv.device))
+    float(loop_steps(venv, state, _predrawn(venv, 4, 1)[0])[0])  # warm up
+    best = None
+    for i, actions in enumerate(_predrawn(venv, num_steps, reps)):
+        _, state = venv.reset(rng.PRNGKey(i + 1, venv.device))
+        _sync(venv.device)
+        t0 = time.perf_counter()
+        acc, state = loop_steps(venv, state, actions)
+        float(acc)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    out = {**_rate(venv.num_envs, num_steps, best), "predrawn": True,
+           "strategy": venv.reset_strategy, "pool_refill": venv.pool_refill}
+    if isinstance(state, PooledState):
+        n_fresh, n_stale = int(state.n_fresh), int(state.n_stale)
+        out.update(n_fresh=n_fresh, n_stale=n_stale,
+                   fresh_frac=n_fresh / (n_fresh + n_stale) if n_fresh + n_stale else None)
+    return out
 
 
 def _timed(fn, reps: int) -> tuple[float, object]:
@@ -312,6 +356,22 @@ def profile_fused(fvenv: FusedVectorEnv, num_steps: int, top: int = 15) -> dict:
     return {"num_envs": fvenv.num_envs, **_trace(body, num_steps, top)}
 
 
+def profile_steps(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
+    """:func:`profile` for :func:`loop_steps` (any reset strategy): reset
+    and a warm-up block outside the trace, then ``num_steps`` predrawn steps
+    traced."""
+    warm, actions = (_predrawn(venv, t, 1)[0] for t in (4, num_steps))
+    _, state = venv.reset(rng.PRNGKey(0, venv.device))
+    acc, state = loop_steps(venv, state, warm)
+    float(acc)
+
+    def body():
+        float(loop_steps(venv, state, actions)[0])
+
+    return {"num_envs": venv.num_envs, "strategy": venv.reset_strategy,
+            **_trace(body, num_steps, top)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=NUM_STEPS)
@@ -321,7 +381,22 @@ def main(argv=None) -> None:
                     help="time FusedVectorEnv (one kernel a step) instead")
     ap.add_argument("--predrawn", action="store_true",
                     help="draw each run's actions before its timer starts")
+    ap.add_argument("--env", metavar="ID",
+                    help="time this env id through VectorEnv.step, default strategy")
     args = ap.parse_args(argv)
+    if args.env:
+        venv = minigrid_tpu_torch.make_vec(args.env, NUM_ENVS)
+        if args.profile:
+            print(json.dumps({"env": args.env, **profile_steps(venv, args.profile),
+                              "device": card()}))
+            return
+        result = measure_steps(venv, args.steps)
+        print(json.dumps({
+            "metric": f"env_steps_per_sec ({NUM_ENVS} envs, {args.env}, "
+                      f"{venv.reset_strategy} auto-reset, PyTorch port)",
+            "value": result["env_steps_per_sec"], "unit": "steps/s", **result,
+            "device": card()}))
+        return
     if args.fused:
         fvenv = make_fused()
         if args.profile:

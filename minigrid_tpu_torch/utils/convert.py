@@ -5,7 +5,9 @@ names of ``EnvState`` (or of ``PooledState``, with ``envs``/``pool`` as nested
 dicts) and returns the port's state on a device; ``state_to_numpy`` goes the
 other way, in the JAX package's dtypes (packed grids and PRNG keys as
 uint32).  The port never sees a JAX object: the caller turns a JAX pytree
-into such a dict.
+into such a dict.  An ``EnvState``'s ``extra`` is ``None``, an array or a
+dict of arrays (dicts may nest); it crosses as int32, which is what every
+family keeps there.
 
 ``fused_state_from_numpy``/``fused_state_to_numpy`` carry the plane dict of
 ``FusedVectorEnv`` across: the JAX package keeps its grid as ``[N, LANES]``
@@ -22,7 +24,7 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.grid_ops import pack_word
-from minigrid_tpu_torch.core.state import EnvState, resolve_device
+from minigrid_tpu_torch.core.state import EnvState, map_tree, resolve_device
 from minigrid_tpu_torch.parallel.vector import PooledState
 
 _ENV_DTYPES = {
@@ -67,14 +69,17 @@ def _convert(fields: dict, dtypes: dict, device) -> dict:
 
 def state_from_numpy(fields: dict, device=None):
     """numpy fields -> ``EnvState``, or ``PooledState`` when ``fields`` has
-    ``envs``/``pool``.  Absent box planes are ``None``."""
+    ``envs``/``pool``.  Absent box planes and ``extra`` are ``None``."""
     dev = resolve_device(device)
     if "envs" in fields:
         rest = {k: v for k, v in fields.items() if k not in ("envs", "pool")}
         return PooledState(envs=state_from_numpy(fields["envs"], dev),
                            pool=state_from_numpy(fields["pool"], dev),
                            **_convert(rest, _POOL_DTYPES, dev))
-    return EnvState(**_convert(fields, _ENV_DTYPES, dev))
+    rest = {k: v for k, v in fields.items() if k != "extra"}
+    extra = map_tree(lambda v: _to_tensor("extra", v, torch.int32, dev),
+                     fields.get("extra"))
+    return EnvState(**_convert(rest, _ENV_DTYPES, dev), extra=extra)
 
 
 def state_to_numpy(state) -> dict:
@@ -85,6 +90,8 @@ def state_to_numpy(state) -> dict:
         v = getattr(state, f.name)
         if isinstance(v, EnvState):
             out[f.name] = state_to_numpy(v)
+        elif f.name == "extra":
+            out[f.name] = map_tree(lambda t: t.detach().cpu().numpy(), v)
         elif v is None:
             out[f.name] = None
         else:

@@ -35,7 +35,8 @@ CPU = torch.device("cpu")
 
 def jax_to_numpy(tree) -> dict:
     """A JAX ``EnvState``/``PooledState`` -> numpy fields keyed by name;
-    ``None`` leaves (absent box planes, ``extra``) are dropped."""
+    ``None`` leaves (absent box planes, ``extra``) are dropped, and a dict
+    ``extra`` becomes a dict of arrays."""
     out = {}
     for f in dataclasses.fields(tree):
         v = getattr(tree, f.name)
@@ -43,6 +44,8 @@ def jax_to_numpy(tree) -> dict:
             continue
         if dataclasses.is_dataclass(v):
             out[f.name] = jax_to_numpy(v)
+        elif isinstance(v, dict):
+            out[f.name] = jax.tree_util.tree_map(np.asarray, v)
         else:
             out[f.name] = np.asarray(v)
     return out

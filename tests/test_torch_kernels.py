@@ -443,3 +443,94 @@ def test_fused_vector_env_on_the_card_is_one_launch_a_step(cuda):
         assert torch.equal(g, c)
     for k in runs["cpu"][1]:
         assert torch.equal(runs["cuda"][1][k], runs["cpu"][1][k]), k
+
+
+# one id per family of the single-room zoo: grids from 5x5 to 25x25, square
+# and not (DistShift 9x7, RedBlueDoors 16x8), see-through and not
+ZOO_IDS = ["MiniGrid-LavaGapS7-v0", "MiniGrid-DistShift1-v0", "MiniGrid-FourRooms-v0",
+           "MiniGrid-RedBlueDoors-8x8-v0", "MiniGrid-MemoryS17Random-v0",
+           "MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToDoor-8x8-v0",
+           "MiniGrid-GoToObject-8x8-N2-v0", "MiniGrid-PutNear-8x8-N3-v0",
+           "MiniGrid-LavaCrossingS11N5-v0", "MiniGrid-Dynamic-Obstacles-16x16-v0",
+           "MiniGrid-MultiRoom-N6-v0"]
+
+
+def _walked_states(env_id: str, n: int, device, steps: int = 8, seed: int = 0):
+    env = minigrid_tpu_torch.make(env_id)
+    p = env.default_params
+    k_gen, k_act = rng.split(rng.PRNGKey(seed, device)).unbind(0)
+    st = env.generate(rng.split(k_gen, n), p, device)
+    for k in rng.split(k_act, steps):
+        st = env.step_state(st, rng.randint(k, (n,), 0, 8), p)[0]
+    return env, p, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id", ZOO_IDS)
+def test_gather_kernel_on_zoo_states(cuda, env_id):
+    """The kernel against its plain version at each family's (W, H), and
+    the whole observation (see-through families included) card == CPU."""
+    from minigrid_tpu_torch.core.obs import gen_obs_batch
+    from minigrid_tpu_torch.core.state import map_fields
+
+    env, p, st = _walked_states(env_id, 300, cuda)
+    args = (st.grid, st.agent_pos, st.agent_dir, p.agent_view_size)
+    before = obs_gather.LAUNCHES
+    got = obs_gather.gather_view(*args)
+    assert obs_gather.LAUNCHES == before + 1
+    cpu = map_fields(lambda x: x.cpu(), st)
+    want = obs_gather.gather_view_plain(cpu.grid, cpu.agent_pos, cpu.agent_dir,
+                                        p.agent_view_size)
+    assert torch.equal(got.cpu(), want)
+    obs_gpu, obs_cpu = gen_obs_batch(st, p), gen_obs_batch(cpu, p)
+    for k in obs_cpu:
+        assert torch.equal(obs_gpu[k].cpu(), obs_cpu[k]), k
+
+
+@pytest.mark.gpu
+def test_gather_kernel_on_a_ragged_25x25_batch(cuda):
+    """MultiRoom's 25x25 grid: the tile (80,384 bytes) needs dynamic shared
+    memory; B=4097 leaves one env in the last tile."""
+    _, p, st = _walked_states("MiniGrid-MultiRoom-N6-v0", 4097, cuda, steps=4)
+    assert obs_gather.gather_tile_bytes(25, 25) > 48 * 1024
+    got = obs_gather.gather_view(st.grid, st.agent_pos, st.agent_dir, 7)
+    want = obs_gather.gather_view_plain(st.grid.cpu(), st.agent_pos.cpu(),
+                                        st.agent_dir.cpu(), 7)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id", ["MiniGrid-Dynamic-Obstacles-8x8-v0",
+                                    "MiniGrid-MultiRoom-N2-S4-v0"])
+def test_zoo_vector_env_on_the_card_gathers_every_step(cuda, env_id):
+    """The batch engine at its default strategy on the card: one gather
+    launch per observation, and the same run as on the CPU."""
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        venv = minigrid_tpu_torch.make_vec(env_id, 64, device=dev, max_steps=7)
+        before = obs_gather.LAUNCHES
+        obs, st = venv.reset(rng.PRNGKey(3, dev))
+        r = np.random.default_rng(0)
+        images = []
+        for _ in range(16):
+            a = torch.from_numpy(r.integers(0, 8, 64).astype(np.int32))
+            obs, st, reward, *_ = venv.step(st, a)
+            images.append((obs["image"].cpu(), reward.cpu().view(torch.int32)))
+        runs[dev.type] = (images, state_to_numpy(st), obs_gather.LAUNCHES - before)
+    assert runs["cuda"][2] == 17 and runs["cpu"][2] == 0
+    for (gi, gr), (ci, cr) in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert torch.equal(gi, ci) and torch.equal(gr, cr)
+    _assert_same_fields(runs["cuda"][1], runs["cpu"][1])
+
+
+def _assert_same_fields(a: dict, b: dict, where: str = "") -> None:
+    assert set(a) == set(b), where
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_same_fields(a[k], b[k], f"{where}{k}.")
+        elif a[k] is None or b[k] is None:
+            assert a[k] is None and b[k] is None, where + k
+        else:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=where + k)

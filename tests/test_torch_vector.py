@@ -219,18 +219,20 @@ def test_state_bridge_round_trips_a_pooled_state():
 
 
 def test_registry_and_params():
-    assert minigrid_tpu_torch.registered_ids() == sorted(
-        [f"MiniGrid-DoorKey-{s}x{s}-v0" for s in (5, 6, 8, 16)]
-        + [f"MiniGrid-Empty-{s}x{s}-v0" for s in (5, 6, 8, 16)]
-        + [f"MiniGrid-Empty-Random-{s}x{s}-v0" for s in (5, 6)])
+    from tests.test_torch_zoo_generate import EARLIER_IDS, ZOO_IDS
+
+    assert minigrid_tpu_torch.registered_ids() == sorted(EARLIER_IDS + ZOO_IDS)
+    assert len(minigrid_tpu_torch.registered_ids()) == 51
     env = minigrid_tpu_torch.make("MiniGrid-DoorKey-6x6-v0")
     assert isinstance(env, DoorKeyEnv)
     assert env.default_params == EnvParams(width=6, height=6, max_steps=360)
     with pytest.raises(KeyError):
-        minigrid_tpu_torch.make("MiniGrid-FourRooms-v0")
-    with pytest.raises(NotImplementedError):
-        minigrid_tpu_torch.make_vec(ENV_ID, 4, reset_strategy="conditional",
-                                    device="cpu")
+        minigrid_tpu_torch.make("MiniGrid-KeyCorridorS3R1-v0")  # RoomGrid: not yet
+    venv = minigrid_tpu_torch.make_vec(ENV_ID, 4, reset_strategy="conditional",
+                                       device="cpu")
+    assert venv.reset_strategy == "conditional"
+    with pytest.raises(ValueError):
+        minigrid_tpu_torch.make_vec(ENV_ID, 4, reset_strategy="lazy", device="cpu")
     with pytest.raises(ValueError):
         minigrid_tpu_torch.make_vec(ENV_ID, 4, reset_strategy="pooled",
                                     pool_refill=3, device="cpu")
