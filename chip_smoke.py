@@ -34,8 +34,8 @@ printing a result:
 
    then the zoo: one id of each single-room family through
    ``make_vec(id, 4096)`` with the reset strategy and refill window the
-   family picks (checked against the JAX package's choice), driven 128
-   steps at the preset ``max_steps`` and 128 at ``max_steps=16`` with the
+   family picks (checked against the JAX package's choice), driven 32
+   steps at the preset ``max_steps`` and 32 at ``max_steps=16`` with the
    launch counts zeroed before each (one ``obs_gather`` launch per
    observation, none of ``fused_step``), the ranges of image, direction,
    mission and reward checked; the gather bitwise against its plain version
@@ -45,9 +45,22 @@ printing a result:
    episodes pooled against ``conditional``; ``rollout(refill_period=8)``
    on MultiRoom-N6; the gather's time at 25x25 against its bound; and the
    launches per step of LavaGap and MultiRoom under ``torch.profiler``;
+
+   then the multi-room families: one id of each (UnlockPickup,
+   BlockedUnlockPickup, Unlock, KeyCorridorS6R3, ObstructedMaze-Full on the
+   RoomGrid builder, pooled with 64-level windows; LockedRoom and
+   Playground, fused) through ``make_vec(id, 4096)`` at the strategy the
+   JAX package picks, 32 steps at the preset ``max_steps`` and 64 at 16
+   with the launch counts zeroed before each (the ring's fresh fraction
+   reported), the gather bitwise on each family's states and on
+   KeyCorridorS3R1's 7x3 grid (narrower than the view) at the ragged
+   B=4097, card == CPU at B=16 for 24 steps, each family's env-steps/s,
+   and the launches per step of KeyCorridorS6R3 and ObstructedMaze-Full
+   under ``torch.profiler``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
-   median), compute each kernel's bound, time the fused step at B=32768
+   median), compute each kernel's bound (the gather also on the 25x25,
+   16x16 and 19x19 states of phase 4), time the fused step at B=32768
    beside B=4096 with its bound, and time both engines end to end with the
    actions of each run drawn before its timer starts.
 
@@ -94,11 +107,31 @@ ZOO = (
     ("MiniGrid-Dynamic-Obstacles-16x16-v0", "fused", 256),
     ("MiniGrid-MultiRoom-N6-v0", "pooled", 32),
 )
-ZOO_STEPS = 128
+ZOO_STEPS = 32  # each walk; 128 before the multi-room phase was added
 ZOO_SHORT_EPISODE = 16  # max_steps of the second walk
 ZOO_TIMED_STEPS = 32
 ZOO_ROLLOUT_STEPS = 64
 MULTIROOM = "MiniGrid-MultiRoom-N6-v0"
+
+# the multi-room families, one id each, with the strategy and window the JAX
+# package picks at B=4096: the RoomGrid families (expensive generation,
+# desynchronized resets, refill fraction 1/64) pooled with 64-level windows,
+# LockedRoom and Playground (plain generators) fused
+ROOMGRID = (
+    ("MiniGrid-UnlockPickup-v0", "pooled", 64),
+    ("MiniGrid-BlockedUnlockPickup-v0", "pooled", 64),
+    ("MiniGrid-Unlock-v0", "pooled", 64),
+    ("MiniGrid-KeyCorridorS6R3-v0", "pooled", 64),
+    ("MiniGrid-ObstructedMaze-Full-v0", "pooled", 64),
+    ("MiniGrid-LockedRoom-v0", "fused", 256),
+    ("MiniGrid-Playground-v0", "fused", 256),
+)
+ROOMGRID_STEPS = 32  # at the preset max_steps (100 to 3,600)
+ROOMGRID_SHORT_STEPS = 64  # at ZOO_SHORT_EPISODE: four waves turn the ring over
+ROOMGRID_CPU_STEPS = 24
+ROOMGRID_PROFILED = ("MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-ObstructedMaze-Full-v0")
+ROOMGRID_PROFILE_STEPS = 4  # each traced step is 6,000-11,000 launches
+NARROW = "MiniGrid-KeyCorridorS3R1-v0"  # 7x3: narrower than the 7x7 view
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -548,8 +581,9 @@ def fused_card_matches_cpu(dev) -> None:
 
 # -- the zoo ----------------------------------------------------------------------
 
-def zoo_walk(dev, counters: dict, env_id: str, seed: int, **overrides) -> dict:
-    """``make_vec(env_id, 4096)`` at its default strategy, ZOO_STEPS steps of
+def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS,
+             **overrides) -> dict:
+    """``make_vec(env_id, 4096)`` at its default strategy, ``steps`` steps of
     actions drawn before the launch counts are zeroed; checks the counts and
     the ranges of what comes out."""
     import minigrid_tpu_torch
@@ -558,7 +592,7 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, **overrides) -> dict:
 
     venv = minigrid_tpu_torch.make_vec(env_id, NUM_ENVS, device=dev, **overrides)
     env = venv.env
-    actions = bench.draw_actions(rng.PRNGKey(seed, dev), ZOO_STEPS, NUM_ENVS,
+    actions = bench.draw_actions(rng.PRNGKey(seed, dev), steps, NUM_ENVS,
                                  env.num_actions)
     codes = torch.from_numpy(env.mission_codes()).to(dev)
     ends = torch.zeros((), dtype=torch.int64, device=dev)
@@ -577,9 +611,9 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, **overrides) -> dict:
     ends, r_lo, r_hi = int(ends), float(r_lo), float(r_hi)
     seconds = time.perf_counter() - t0
     launches = {name: module.LAUNCHES for name, module in counters.items()}
-    if launches != {"obs_gather": ZOO_STEPS + 1, "fused_step": 0}:
+    if launches != {"obs_gather": steps + 1, "fused_step": 0}:
         raise AssertionError(f"{env_id}: launches {launches}, expected "
-                             f"{ZOO_STEPS + 1} obs_gather (one per observation)")
+                             f"{steps + 1} obs_gather (one per observation)")
     v = venv.params.agent_view_size
     image, direction, mission = obs["image"], obs["direction"], obs["mission"]
     if image.shape != (NUM_ENVS, v, v, 3) or image.dtype != torch.uint8:
@@ -595,8 +629,12 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, **overrides) -> dict:
     if not (floor <= r_lo and r_hi <= 1.0):
         raise AssertionError(f"{env_id}: reward outside [{floor}, 1]: {r_lo}..{r_hi}")
     envs = state.envs if hasattr(state, "envs") else state
-    return {"venv": venv, "envs": envs, "ends": ends, "seconds": seconds,
-            "reward": (r_lo, r_hi), "launches": launches}
+    out = {"venv": venv, "envs": envs, "ends": ends, "seconds": seconds,
+           "reward": (r_lo, r_hi), "launches": launches}
+    if hasattr(state, "n_fresh"):
+        n_fresh, n_stale = int(state.n_fresh), int(state.n_stale)
+        out["fresh"] = (n_fresh, n_stale)
+    return out
 
 
 def check_zoo_gather(obs_gather, envs, view: int, what: str, flip: bool) -> int:
@@ -613,16 +651,17 @@ def check_zoo_gather(obs_gather, envs, view: int, what: str, flip: bool) -> int:
     return max_abs_err(got, want)
 
 
-def zoo_card_matches_cpu(dev, env_id: str, seed: int) -> int:
-    """B=16 for 32 steps with max_steps 8 on the card and on the CPU: per-step
-    observation, reward bits and flags, and the final state (``extra`` and a
-    pooled ring included) agree bitwise.  Returns the episode ends."""
+def zoo_card_matches_cpu(dev, env_id: str, seed: int, steps: int = 32) -> int:
+    """B=16 for ``steps`` steps with max_steps 8 on the card and on the CPU:
+    per-step observation, reward bits and flags, and the final state
+    (``extra`` and a pooled ring included) agree bitwise.  Returns the
+    episode ends."""
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
     from minigrid_tpu_torch.tools import bench
     from minigrid_tpu_torch.utils.convert import state_to_numpy
 
-    actions = bench.draw_actions(rng.PRNGKey(seed, "cpu"), 32, 16, 8)
+    actions = bench.draw_actions(rng.PRNGKey(seed, "cpu"), steps, 16, 8)
     runs = []
     for d in (dev, torch.device("cpu")):
         venv = minigrid_tpu_torch.make_vec(env_id, 16, device=d, max_steps=8)
@@ -665,7 +704,7 @@ def drive_zoo(dev, counters: dict, obs_gather, card: str) -> dict:
                                  f"{strategy}/{refill}")
         short = zoo_walk(dev, counters, env_id, seed=200 + i,
                          max_steps=ZOO_SHORT_EPISODE)
-        if short["ends"] < 4 * NUM_ENVS:
+        if short["ends"] < ZOO_STEPS // ZOO_SHORT_EPISODE * NUM_ENVS:
             raise AssertionError(f"{env_id}: only {short['ends']} episode ends in "
                                  f"{ZOO_STEPS} steps at max_steps {ZOO_SHORT_EPISODE}")
         v = venv.params.agent_view_size
@@ -750,6 +789,96 @@ def drive_zoo(dev, counters: dict, obs_gather, card: str) -> dict:
         out["profiles"][env_id] = prof
         log(f"  {env_id} B={NUM_ENVS} {prof['strategy']} under torch.profiler, 8 "
             f"steps: {prof['launches_per_step']:.1f} launches/step, device busy "
+            f"{prof['device_busy_us_per_step']:.1f} us/step of "
+            f"{prof['wall_us_per_step']:.1f} wall, idle share "
+            f"{prof['device_idle_share']:.3f} [{card}]")
+    out["max_abs_err"] = worst
+    return out
+
+
+# -- the multi-room families ----------------------------------------------------
+
+def drive_roomgrid(dev, counters: dict, obs_gather, card: str) -> dict:
+    """Every family of ROOMGRID on the card: a walk at the preset max_steps
+    and one at ZOO_SHORT_EPISODE (its fresh fraction when pooled), the
+    gather bitwise on its states, card == CPU at B=16, env-steps/s; the
+    gather on KeyCorridorS3R1's 7x3 grid at the ragged B=4097; launches per
+    step of ROOMGRID_PROFILED.  Returns what the kernel table and PERF.md
+    read."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import bench
+
+    worst, out = 0, {"rates": {}, "inputs": {}}
+    for i, (env_id, strategy, refill) in enumerate(ROOMGRID):
+        t_family = time.perf_counter()
+        walk = zoo_walk(dev, counters, env_id, seed=400 + i, steps=ROOMGRID_STEPS)
+        venv = walk["venv"]
+        if (venv.reset_strategy, venv.pool_refill) != (strategy, refill):
+            raise AssertionError(f"{env_id}: strategy {venv.reset_strategy}/"
+                                 f"{venv.pool_refill}, the JAX package picks "
+                                 f"{strategy}/{refill}")
+        short = zoo_walk(dev, counters, env_id, seed=500 + i,
+                         steps=ROOMGRID_SHORT_STEPS, max_steps=ZOO_SHORT_EPISODE)
+        waves = ROOMGRID_SHORT_STEPS // ZOO_SHORT_EPISODE
+        if short["ends"] < waves * NUM_ENVS:
+            raise AssertionError(f"{env_id}: only {short['ends']} episode ends in "
+                                 f"{ROOMGRID_SHORT_STEPS} steps at max_steps "
+                                 f"{ZOO_SHORT_EPISODE}")
+        fresh = ""
+        if "fresh" in short:
+            n_fresh, n_stale = short["fresh"]
+            if n_fresh + n_stale != short["ends"] or n_fresh == 0:
+                raise AssertionError(f"{env_id}: ring served fresh {n_fresh} stale "
+                                     f"{n_stale} for {short['ends']} ends")
+            fresh = (f", ring fresh {n_fresh} stale {n_stale} (fresh fraction "
+                     f"{n_fresh / (n_fresh + n_stale)})")
+            out.setdefault("fresh", {})[env_id] = (n_fresh, n_stale)
+        v = venv.params.agent_view_size
+        w, h = venv.params.width, venv.params.height
+        envs = short["envs"]
+        worst = max(worst, check_zoo_gather(obs_gather, envs, v,
+                                            f"{env_id} B={NUM_ENVS}", True))
+        out["inputs"][env_id] = {"grid": envs.grid, "pos": envs.agent_pos,
+                                 "dir": envs.agent_dir}
+        ends16 = zoo_card_matches_cpu(dev, env_id, seed=600 + i,
+                                      steps=ROOMGRID_CPU_STEPS)
+        rate = bench.measure_steps(venv, ZOO_TIMED_STEPS)
+        out["rates"][env_id] = rate
+        log(f"  {env_id} {w}x{h}: {venv.reset_strategy}, pool_refill "
+            f"{venv.pool_refill} (as the JAX package picks); {ROOMGRID_STEPS} steps "
+            f"at max_steps {venv.env.max_steps}: {walk['ends']} episode ends, "
+            f"{walk['seconds']:.2f} s; {ROOMGRID_SHORT_STEPS} at max_steps "
+            f"{ZOO_SHORT_EPISODE}: {short['ends']} ends, {short['seconds']:.2f} s"
+            f"{fresh}; launches {short['launches']} in the short walk; rewards in "
+            f"[{walk['reward'][0]}, {max(walk['reward'][1], short['reward'][1])}]; "
+            f"gather bitwise, flipped-bit self-check caught; B=16 card == CPU "
+            f"({ROOMGRID_CPU_STEPS} steps, {ends16} ends); "
+            f"{rate['env_steps_per_sec']:.0f} env-steps/s, {rate['us_per_step']:.1f} "
+            f"us/step ({rate['strategy']}, predrawn, best of 2 x {ZOO_TIMED_STEPS} "
+            f"steps); {time.perf_counter() - t_family:.1f} s [{card}]")
+
+    # the 7x3 grid, narrower than the view, at a ragged batch
+    env = minigrid_tpu_torch.make(NARROW)
+    k_gen, k_act = rng.split(rng.PRNGKey(11, dev)).unbind(0)
+    st = env.generate(rng.split(k_gen, RAGGED_ENVS), env.default_params, dev)
+    for k in rng.split(k_act, 8):
+        st = env.step_state(st, rng.randint(k, (RAGGED_ENVS,), 0, 8),
+                            env.default_params)[0]
+    worst = max(worst, check_zoo_gather(obs_gather, st, VIEW,
+                                        f"{NARROW} B={RAGGED_ENVS}", True))
+    log(f"  {NARROW} {env.width}x{env.height} gather: bitwise at B={RAGGED_ENVS}, "
+        f"flipped-bit self-check caught")
+
+    out["profiles"] = {}
+    for env_id in ROOMGRID_PROFILED:
+        prof = bench.profile_steps(minigrid_tpu_torch.make_vec(env_id, NUM_ENVS,
+                                                               device=dev),
+                                   ROOMGRID_PROFILE_STEPS)
+        out["profiles"][env_id] = prof
+        log(f"  {env_id} B={NUM_ENVS} {prof['strategy']} under torch.profiler, "
+            f"{ROOMGRID_PROFILE_STEPS} steps: {prof['launches_per_step']:.1f} "
+            f"launches/step, device busy "
             f"{prof['device_busy_us_per_step']:.1f} us/step of "
             f"{prof['wall_us_per_step']:.1f} wall, idle share "
             f"{prof['device_idle_share']:.3f} [{card}]")
@@ -883,8 +1012,16 @@ def main() -> int:
     fused_card_matches_cpu(dev)
 
     log("phase 4b: the zoo")
+    t0 = time.perf_counter()
     zoo = drive_zoo(dev, counters, obs_gather, card)
     err = max(err, zoo["max_abs_err"])
+    log(f"  the zoo phase took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4c: the multi-room families")
+    t0 = time.perf_counter()
+    rooms = drive_roomgrid(dev, counters, obs_gather, card)
+    err = max(err, rooms["max_abs_err"])
+    log(f"  the multi-room phase took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)
@@ -902,6 +1039,17 @@ def main() -> int:
         f"torch.gather {mr_times['library_ms'] * 1e3:.2f} us, bound "
         f"{mr_bound * 1e3:.3f} us ({mr_by}; {mr_work}), "
         f"{mr_bound / mr_times['ms']:.3f} of the bound [{card}]")
+
+    for env_id in ("MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-LockedRoom-v0"):
+        rg = rooms["inputs"][env_id]
+        rg_times = time_gather(obs_gather, rg)
+        rg_bound, rg_by, rg_work = gather_bound_ms(rg)
+        _, w, h = rg["grid"].shape
+        log(f"  obs_gather B={NUM_ENVS} {w}x{h} V={VIEW} ({env_id} states): kernel "
+            f"{rg_times['ms'] * 1e3:.2f} us, plain {rg_times['plain_ms'] * 1e3:.2f} us, "
+            f"torch.gather {rg_times['library_ms'] * 1e3:.2f} us, bound "
+            f"{rg_bound * 1e3:.3f} us ({rg_by}; {rg_work}), "
+            f"{rg_bound / rg_times['ms']:.3f} of the bound [{card}]")
 
     fused_times = time_fused(fused_step, fused_args, fused_spec)
     fused_out = fused_step.fused_step_plain(*fused_args, fused_spec)

@@ -14,7 +14,14 @@ reproduces the calls they make, bit for bit, as jax 0.9 computes them with
 * ``randint`` is ``jax.random._randint``: two bit draws from ``split(key)``,
   unsigned span arithmetic, ``span = 1`` when ``maxval <= minval``;
 * ``permutation(key, n)`` is ``jax.random._shuffle`` of ``arange(n)``: per
-  round ``key, sub = split(key)`` and a stable sort by ``bits(sub, (n,))``.
+  round ``key, sub = split(key)`` and a stable sort by ``bits(sub, (n,))``;
+* float32 ``uniform`` is ``jax.random._uniform``: ``bits >> 9 | 0x3f800000``
+  bitcast to float, minus 1, scaled, clamped below at ``minval``;
+* ``categorical`` (``mode="low"``) is ``argmax(-log(-log(u)) + logits)`` with
+  ``u = uniform(key, minval=tiny, maxval=1)``, the first index on ties.
+
+``top_k`` is ``jax.lax.top_k``'s order (not a draw): largest first, equal
+values lower index first.
 
 A key is a pair of uint32 words.  torch has no full uint32 arithmetic, so keys
 and intermediate words are int64 holding values in [0, 2^32), masked after
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from minigrid_tpu_torch.core.state import resolve_device
@@ -151,3 +159,53 @@ def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
         x = x.gather(-1, order)
     return x.contiguous()
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def uniform(keys: torch.Tensor, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``:
+    ``[..., 2]`` keys -> float32 ``[..., *shape]`` in [minval, maxval).
+
+    The 23 high bits of each word become the mantissa of a float in [1, 2);
+    minus 1 that is a multiple of 2^-23 in [0, 1), exact.  Bitwise for the
+    ranges the JAX package draws, [0, 1) and [tiny, 1), where the scale is
+    exactly 1 and no rounding order can change a bit."""
+    words = bits(keys, tuple(shape))
+    floats = (((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+              - 1.0)
+    # the bounds and their difference in float32, as JAX converts them
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp(floats * float(span) + float(lo), min=float(lo))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor,
+                mode: str = "low") -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last dim: keys
+    ``[..., 2]`` and float32 logits ``[..., n]`` -> int32 ``[...]``.
+
+    The Gumbel-max draw of ``mode="low"``: ``argmax(-log(-log(u)) + logits)``
+    for ``u = uniform(key, (n,), tiny, 1)``, the first index on ties, index 0
+    when every logit is ``-inf``.  The noise is strictly increasing in ``u``
+    and its neighbouring values lie several ulps apart, so the index does not
+    depend on the last bit of ``log``; with logits of 0 and ``-inf`` (every
+    draw of the JAX package) it is JAX's index exactly.  JAX's
+    ``use_high_dynamic_range_gumbel`` mode draws two uniforms per entry; no
+    caller sets it, and it raises here."""
+    if mode != "low":
+        raise ValueError(f"categorical supports mode='low' only, got {mode!r}")
+    u = uniform(keys, (logits.shape[-1],), _TINY, 1.0)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + logits, dim=-1).to(torch.int32)
+
+
+def top_k(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k(values, k)`` over the last dim: (the k largest values,
+    their int32 indices), largest first and equal values lower index first,
+    as XLA orders them.  ``torch.topk`` promises no order among ties; a
+    stable descending sort keeps the lower index first."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)

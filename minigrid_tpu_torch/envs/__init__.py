@@ -1,8 +1,12 @@
 """Environment zoo + id registrations (the families ported so far), with the
-JAX package's ids and preset kwargs."""
+JAX package's ids and preset kwargs: the single-room zoo, and the multi-room
+families built on ``core/roomgrid.py`` (Unlock, UnlockPickup,
+BlockedUnlockPickup, KeyCorridor, ObstructedMaze) or beside it (LockedRoom,
+Playground)."""
 
 from __future__ import annotations
 
+from minigrid_tpu_torch.envs.blockedunlockpickup import BlockedUnlockPickupEnv
 from minigrid_tpu_torch.envs.crossing import CrossingEnv
 from minigrid_tpu_torch.envs.distshift import DistShiftEnv
 from minigrid_tpu_torch.envs.doorkey import DoorKeyEnv
@@ -12,11 +16,24 @@ from minigrid_tpu_torch.envs.fetch import FetchEnv
 from minigrid_tpu_torch.envs.fourrooms import FourRoomsEnv
 from minigrid_tpu_torch.envs.gotodoor import GoToDoorEnv
 from minigrid_tpu_torch.envs.gotoobject import GoToObjectEnv
+from minigrid_tpu_torch.envs.keycorridor import KeyCorridorEnv
 from minigrid_tpu_torch.envs.lavagap import LavaGapEnv
+from minigrid_tpu_torch.envs.lockedroom import LockedRoomEnv
 from minigrid_tpu_torch.envs.memory import MemoryEnv
 from minigrid_tpu_torch.envs.multiroom import MultiRoomEnv
+from minigrid_tpu_torch.envs.obstructedmaze import (
+    ObstructedMaze_1Dlhb,
+    ObstructedMaze_2Dl,
+    ObstructedMaze_2Dlh,
+    ObstructedMaze_2Dlhb,
+    ObstructedMaze_Full,
+    ObstructedMazeEnv,
+)
+from minigrid_tpu_torch.envs.playground import PlaygroundEnv
 from minigrid_tpu_torch.envs.putnear import PutNearEnv
 from minigrid_tpu_torch.envs.redbluedoors import RedBlueDoorEnv
+from minigrid_tpu_torch.envs.unlock import UnlockEnv
+from minigrid_tpu_torch.envs.unlockpickup import UnlockPickupEnv
 from minigrid_tpu_torch.registry import register
 
 # --- Empty ---
@@ -109,7 +126,44 @@ register("MiniGrid-MultiRoom-N4-S5-v0", MultiRoomEnv, minNumRooms=6,
          maxNumRooms=6, maxRoomSize=5)
 register("MiniGrid-MultiRoom-N6-v0", MultiRoomEnv, minNumRooms=6, maxNumRooms=6)
 
+# --- KeyCorridor ---
+register("MiniGrid-KeyCorridorS3R1-v0", KeyCorridorEnv, room_size=3, num_rows=1)
+register("MiniGrid-KeyCorridorS3R2-v0", KeyCorridorEnv, room_size=3, num_rows=2)
+register("MiniGrid-KeyCorridorS3R3-v0", KeyCorridorEnv, room_size=3, num_rows=3)
+register("MiniGrid-KeyCorridorS4R3-v0", KeyCorridorEnv, room_size=4, num_rows=3)
+register("MiniGrid-KeyCorridorS5R3-v0", KeyCorridorEnv, room_size=5, num_rows=3)
+register("MiniGrid-KeyCorridorS6R3-v0", KeyCorridorEnv, room_size=6, num_rows=3)
+
+# --- LockedRoom ---
+register("MiniGrid-LockedRoom-v0", LockedRoomEnv)
+
+# --- Playground ---
+register("MiniGrid-Playground-v0", PlaygroundEnv)
+
+# --- ObstructedMaze ---
+register("MiniGrid-ObstructedMaze-1Dl-v0", ObstructedMaze_1Dlhb,
+         key_in_box=False, blocked=False)
+register("MiniGrid-ObstructedMaze-1Dlh-v0", ObstructedMaze_1Dlhb,
+         key_in_box=True, blocked=False)
+register("MiniGrid-ObstructedMaze-1Dlhb-v0", ObstructedMaze_1Dlhb)
+register("MiniGrid-ObstructedMaze-2Dl-v0", ObstructedMaze_2Dl)
+register("MiniGrid-ObstructedMaze-2Dlh-v0", ObstructedMaze_2Dlh)
+register("MiniGrid-ObstructedMaze-2Dlhb-v0", ObstructedMaze_2Dlhb)
+register("MiniGrid-ObstructedMaze-1Q-v0", ObstructedMaze_Full,
+         agent_room=(1, 1), key_in_box=True, blocked=True, num_quarters=1,
+         num_rooms_visited=5)
+register("MiniGrid-ObstructedMaze-2Q-v0", ObstructedMaze_Full,
+         agent_room=(1, 1), key_in_box=True, blocked=True, num_quarters=2,
+         num_rooms_visited=11)
+register("MiniGrid-ObstructedMaze-Full-v0", ObstructedMaze_Full)
+
+# --- Unlock family ---
+register("MiniGrid-Unlock-v0", UnlockEnv)
+register("MiniGrid-UnlockPickup-v0", UnlockPickupEnv)
+register("MiniGrid-BlockedUnlockPickup-v0", BlockedUnlockPickupEnv)
+
 __all__ = [
+    "BlockedUnlockPickupEnv",
     "CrossingEnv",
     "DistShiftEnv",
     "DoorKeyEnv",
@@ -119,9 +173,20 @@ __all__ = [
     "FourRoomsEnv",
     "GoToDoorEnv",
     "GoToObjectEnv",
+    "KeyCorridorEnv",
     "LavaGapEnv",
+    "LockedRoomEnv",
     "MemoryEnv",
     "MultiRoomEnv",
+    "ObstructedMazeEnv",
+    "ObstructedMaze_1Dlhb",
+    "ObstructedMaze_2Dl",
+    "ObstructedMaze_2Dlh",
+    "ObstructedMaze_2Dlhb",
+    "ObstructedMaze_Full",
+    "PlaygroundEnv",
     "PutNearEnv",
     "RedBlueDoorEnv",
+    "UnlockEnv",
+    "UnlockPickupEnv",
 ]
