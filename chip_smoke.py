@@ -57,10 +57,22 @@ printing a result:
    B=4097, card == CPU at B=16 for 24 steps, each family's env-steps/s,
    and the launches per step of KeyCorridorS6R3 and ObstructedMaze-Full
    under ``torch.profiler``;
+
+   then BabyAI: six levels (GoToRedBall, GoTo's 22x22 maze, GoToImpUnlock,
+   OpenDoorsOrderN4, PickupDistDebug, GoToObjS4's 4x4) through
+   ``make_vec(id, 4096)``, pooled at the JAX package's windows with the
+   best-effort refill, a walk of 16 steps at ``max_steps`` 4 with the launch
+   counts zeroed before it (one ``obs_gather`` launch per observation, none
+   of ``fused_step``; the ring's fresh fraction), the gather bitwise on each
+   level's states and on OpenRedDoor's 9x5 at B=4097, card == CPU at B=64
+   pooled for 24 steps (verifier state included; GoToObjS4 at its
+   per-episode ``max_steps`` of 16), env-steps/s at the preset limits, and
+   the launches per step of GoToRedBall and GoTo under ``torch.profiler``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
-   16x16 and 19x19 states of phase 4), time the fused step at B=32768
+   16x16, 19x19, 22x22, 4x4 and 9x5 states of phase 4), time the fused step
+   at B=32768
    beside B=4096 with its bound, and time both engines end to end with the
    actions of each run drawn before its timer starts.
 
@@ -132,6 +144,29 @@ ROOMGRID_CPU_STEPS = 24
 ROOMGRID_PROFILED = ("MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-ObstructedMaze-Full-v0")
 ROOMGRID_PROFILE_STEPS = 4  # each traced step is 6,000-11,000 launches
 NARROW = "MiniGrid-KeyCorridorS3R1-v0"  # 7x3: narrower than the 7x7 view
+
+# BabyAI, with the strategy and window the JAX package picks at B=4096: every
+# level pooled (desynchronized resets), refill windows of B/8 for a single
+# room and the floor of 16 for the mazes, refilled best-effort through
+# generate_attempt
+BABYAI = (
+    ("BabyAI-GoToRedBall-v0", "pooled", 512),  # one room of 8
+    ("BabyAI-GoTo-v0", "pooled", 16),  # 3x3 rooms of 8: 22x22
+    ("BabyAI-GoToImpUnlock-v0", "pooled", 16),  # a locked room, exclude_room
+    ("BabyAI-OpenDoorsOrderN4-v0", "pooled", 16),  # before/after sequencing
+    ("BabyAI-PickupDistDebug-v0", "pooled", 512),  # strict: the failure path
+    ("BabyAI-GoToObjS4-v0", "pooled", 512),  # 4x4; per-episode max_steps 16
+)
+# the walk, at BABYAI_EPISODE: four waves turn the ring over (a walk of 32
+# steps at 8 took the phase to 332 s on an H100 80GB HBM3 at 700 W, GoTo's
+# 22x22 maze 126 s of it)
+BABYAI_STEPS = 16
+BABYAI_EPISODE = 4
+BABYAI_CPU_ENVS = 64  # pooled, best-effort refill
+BABYAI_CPU_STEPS = 24
+BABYAI_PROFILED = ("BabyAI-GoToRedBall-v0", "BabyAI-GoTo-v0")
+BABYAI_PROFILE_STEPS = 4
+BABYAI_9X5 = "BabyAI-OpenRedDoor-v0"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -594,6 +629,7 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
     env = venv.env
     actions = bench.draw_actions(rng.PRNGKey(seed, dev), steps, NUM_ENVS,
                                  env.num_actions)
+    grammar = getattr(env, "grammar_missions", False)
     codes = torch.from_numpy(env.mission_codes()).to(dev)
     ends = torch.zeros((), dtype=torch.int64, device=dev)
     r_lo = torch.zeros((), device=dev)
@@ -623,7 +659,15 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
         raise AssertionError(f"{env_id}: image fields out of range")
     if not bool(((direction >= 0) & (direction < 4)).all()):
         raise AssertionError(f"{env_id}: direction out of range")
-    if not bool((mission[:, None, :] == codes[None]).all(-1).any(-1).all()):
+    if grammar:
+        # BabyAI: the 43-int instruction code, its sequencing and clause kinds
+        # in range and the first clause set
+        kinds = mission[:, 3:7]
+        if (mission.shape != (NUM_ENVS, 43) or not bool((mission[:, 0] <= 3).all())
+                or not bool(((kinds >= 0) & (kinds <= 4)).all())
+                or not bool((kinds[:, 0] > 0).all())):
+            raise AssertionError(f"{env_id}: missions out of range")
+    elif not bool((mission[:, None, :] == codes[None]).all(-1).any(-1).all()):
         raise AssertionError(f"{env_id}: a mission outside the env's codes")
     floor = -1.0 if "Dynamic-Obstacles" in env_id else 0.0
     if not (floor <= r_lo and r_hi <= 1.0):
@@ -651,20 +695,24 @@ def check_zoo_gather(obs_gather, envs, view: int, what: str, flip: bool) -> int:
     return max_abs_err(got, want)
 
 
-def zoo_card_matches_cpu(dev, env_id: str, seed: int, steps: int = 32) -> int:
-    """B=16 for ``steps`` steps with max_steps 8 on the card and on the CPU:
-    per-step observation, reward bits and flags, and the final state
-    (``extra`` and a pooled ring included) agree bitwise.  Returns the
-    episode ends."""
+def zoo_card_matches_cpu(dev, env_id: str, seed: int, steps: int = 32,
+                         num_envs: int = 16, max_steps: int | None = 8,
+                         final=None) -> int:
+    """B=``num_envs`` for ``steps`` steps with ``max_steps`` (None: the
+    preset) on the card and on the CPU: per-step observation, reward bits
+    and flags, and the final state (``extra`` and a pooled ring included)
+    agree bitwise.  ``final(state)`` checks the CPU's final state.  Returns
+    the episode ends."""
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
     from minigrid_tpu_torch.tools import bench
     from minigrid_tpu_torch.utils.convert import state_to_numpy
 
-    actions = bench.draw_actions(rng.PRNGKey(seed, "cpu"), steps, 16, 8)
+    actions = bench.draw_actions(rng.PRNGKey(seed, "cpu"), steps, num_envs, 8)
     runs = []
+    limit = {} if max_steps is None else {"max_steps": max_steps}
     for d in (dev, torch.device("cpu")):
-        venv = minigrid_tpu_torch.make_vec(env_id, 16, device=d, max_steps=8)
+        venv = minigrid_tpu_torch.make_vec(env_id, num_envs, device=d, **limit)
         _, state = venv.reset(rng.PRNGKey(seed, d))
         steps = []
         for a in actions:
@@ -673,16 +721,18 @@ def zoo_card_matches_cpu(dev, env_id: str, seed: int, steps: int = 32) -> int:
                           obs["mission"].cpu(), r.cpu().view(torch.int32), te.cpu(),
                           tr.cpu()])
         runs.append((steps, state_to_numpy(state)))
+    if final is not None:
+        final(state)
     (g_steps, g_state), (c_steps, c_state) = runs
     ends = 0
     for t, (g, c) in enumerate(zip(g_steps, c_steps)):
         for name, a, b in zip(("image", "direction", "mission", "reward bits",
                                "terminated", "truncated"), g, c):
             if mismatches(a, b):
-                raise AssertionError(f"{env_id} B=16 step {t}: {name} differs "
+                raise AssertionError(f"{env_id} B={num_envs} step {t}: {name} differs "
                                      f"card vs CPU")
         ends += int((c[4] | c[5]).sum())
-    same_fields(g_state, c_state, f"{env_id} B=16 final state ")
+    same_fields(g_state, c_state, f"{env_id} B={num_envs} final state ")
     return ends
 
 
@@ -886,6 +936,99 @@ def drive_roomgrid(dev, counters: dict, obs_gather, card: str) -> dict:
     return out
 
 
+# -- BabyAI ------------------------------------------------------------------------
+
+def drive_babyai(dev, counters: dict, obs_gather, card: str) -> dict:
+    """Every level of BABYAI on the card: a walk of BABYAI_STEPS at
+    BABYAI_EPISODE (launch counts, the ring's fresh fraction), the gather
+    bitwise on its states, card == CPU at B=64 pooled, env-steps/s at the
+    preset limits; the gather on OpenRedDoor's 9x5 grid; launches per step
+    of BABYAI_PROFILED.  Returns what the kernel table and PERF.md read."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import bench
+
+    worst, out = 0, {"rates": {}, "inputs": {}, "fresh": {}}
+
+    def dynamic_limit(state):
+        if not bool((state.envs.max_steps == 16).all()):
+            raise AssertionError("GoToObjS4: per-episode max_steps is not 16")
+
+    for i, (env_id, strategy, refill) in enumerate(BABYAI):
+        t_level = time.perf_counter()
+        walk = zoo_walk(dev, counters, env_id, seed=700 + i, steps=BABYAI_STEPS,
+                        max_steps=BABYAI_EPISODE)
+        venv = walk["venv"]
+        if (venv.reset_strategy, venv.pool_refill) != (strategy, refill):
+            raise AssertionError(f"{env_id}: strategy {venv.reset_strategy}/"
+                                 f"{venv.pool_refill}, the JAX package picks "
+                                 f"{strategy}/{refill}")
+        if not venv.best_effort_refill:
+            raise AssertionError(f"{env_id}: the refill is not best-effort")
+        waves = BABYAI_STEPS // BABYAI_EPISODE
+        n_fresh, n_stale = walk["fresh"]
+        if walk["ends"] < waves * NUM_ENVS or n_fresh + n_stale != walk["ends"]:
+            raise AssertionError(f"{env_id}: {walk['ends']} episode ends, ring served "
+                                 f"fresh {n_fresh} stale {n_stale}")
+        out["fresh"][env_id] = (n_fresh, n_stale)
+        envs = walk["envs"]
+        w, h = venv.params.width, venv.params.height
+        worst = max(worst, check_zoo_gather(obs_gather, envs, VIEW,
+                                            f"{env_id} B={NUM_ENVS}", True))
+        out["inputs"][f"{w}x{h}"] = {"grid": envs.grid, "pos": envs.agent_pos,
+                                     "dir": envs.agent_dir}
+        is_s4 = env_id == "BabyAI-GoToObjS4-v0"
+        ends64 = zoo_card_matches_cpu(
+            dev, env_id, seed=800 + i, steps=BABYAI_CPU_STEPS, num_envs=BABYAI_CPU_ENVS,
+            max_steps=None if is_s4 else BABYAI_EPISODE,
+            final=dynamic_limit if is_s4 else None)
+        rate = bench.measure_steps(minigrid_tpu_torch.make_vec(env_id, NUM_ENVS,
+                                                               device=dev),
+                                   ZOO_TIMED_STEPS)
+        out["rates"][env_id] = rate
+        log(f"  {env_id} {w}x{h}: {venv.reset_strategy}, pool_refill {venv.pool_refill}, "
+            f"best-effort refill (as the JAX package picks); {BABYAI_STEPS} steps at "
+            f"max_steps {BABYAI_EPISODE}: {walk['ends']} ends, {walk['seconds']:.2f} s, "
+            f"ring fresh {n_fresh} stale {n_stale} (fresh fraction "
+            f"{n_fresh / (n_fresh + n_stale)}); launches {walk['launches']}; rewards in "
+            f"[{walk['reward'][0]}, {walk['reward'][1]}]; gather bitwise, flipped-bit "
+            f"self-check caught; B={BABYAI_CPU_ENVS} pooled card == CPU "
+            f"({BABYAI_CPU_STEPS} steps, {ends64} ends, verifier state included); "
+            f"{rate['env_steps_per_sec']:.0f} env-steps/s, {rate['us_per_step']:.1f} "
+            f"us/step ({rate['strategy']}/{rate['pool_refill']}, preset max_steps, "
+            f"predrawn, best of 2 x {ZOO_TIMED_STEPS} steps, fresh fraction "
+            f"{rate.get('fresh_frac')}); {time.perf_counter() - t_level:.1f} s [{card}]")
+
+    # OpenRedDoor's 9x5 grid: two rooms of 5 side by side
+    env = minigrid_tpu_torch.make(BABYAI_9X5)
+    k_gen, k_act = rng.split(rng.PRNGKey(13, dev)).unbind(0)
+    st = env.generate(rng.split(k_gen, RAGGED_ENVS), env.default_params, dev)
+    for k in rng.split(k_act, 8):
+        st = env.step_state(st, rng.randint(k, (RAGGED_ENVS,), 0, 8),
+                            env.default_params)[0]
+    worst = max(worst, check_zoo_gather(obs_gather, st, VIEW,
+                                        f"{BABYAI_9X5} B={RAGGED_ENVS}", True))
+    out["inputs"]["9x5"] = {"grid": st.grid[:NUM_ENVS], "pos": st.agent_pos[:NUM_ENVS],
+                            "dir": st.agent_dir[:NUM_ENVS]}
+    log(f"  {BABYAI_9X5} {env.width}x{env.height} gather: bitwise at B={RAGGED_ENVS}, "
+        f"flipped-bit self-check caught")
+
+    out["profiles"] = {}
+    for env_id in BABYAI_PROFILED:
+        prof = bench.profile_steps(minigrid_tpu_torch.make_vec(env_id, NUM_ENVS,
+                                                               device=dev),
+                                   BABYAI_PROFILE_STEPS)
+        out["profiles"][env_id] = prof
+        log(f"  {env_id} B={NUM_ENVS} {prof['strategy']}/{prof['pool_refill']} under "
+            f"torch.profiler, {BABYAI_PROFILE_STEPS} steps: "
+            f"{prof['launches_per_step']:.1f} launches/step, device busy "
+            f"{prof['device_busy_us_per_step']:.1f} us/step of "
+            f"{prof['wall_us_per_step']:.1f} wall, idle share "
+            f"{prof['device_idle_share']:.3f} [{card}]")
+    out["max_abs_err"] = worst
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -1023,6 +1166,12 @@ def main() -> int:
     err = max(err, rooms["max_abs_err"])
     log(f"  the multi-room phase took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 4d: BabyAI")
+    t0 = time.perf_counter()
+    baby = drive_babyai(dev, counters, obs_gather, card)
+    err = max(err, baby["max_abs_err"])
+    log(f"  the BabyAI phase took {time.perf_counter() - t0:.1f} s")
+
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)
     bound_ms, bound_by, work = gather_bound_ms(inputs)
@@ -1050,6 +1199,17 @@ def main() -> int:
             f"torch.gather {rg_times['library_ms'] * 1e3:.2f} us, bound "
             f"{rg_bound * 1e3:.3f} us ({rg_by}; {rg_work}), "
             f"{rg_bound / rg_times['ms']:.3f} of the bound [{card}]")
+
+    for shape, env_id in (("22x22", "BabyAI-GoTo-v0"), ("4x4", "BabyAI-GoToObjS4-v0"),
+                          ("9x5", BABYAI_9X5)):
+        bi = baby["inputs"][shape]
+        bi_times = time_gather(obs_gather, bi)
+        bi_bound, bi_by, bi_work = gather_bound_ms(bi)
+        log(f"  obs_gather B={NUM_ENVS} {shape} V={VIEW} ({env_id} states): kernel "
+            f"{bi_times['ms'] * 1e3:.2f} us, plain {bi_times['plain_ms'] * 1e3:.2f} us, "
+            f"torch.gather {bi_times['library_ms'] * 1e3:.2f} us, bound "
+            f"{bi_bound * 1e3:.3f} us ({bi_by}; {bi_work}), "
+            f"{bi_bound / bi_times['ms']:.3f} of the bound [{card}]")
 
     fused_times = time_fused(fused_step, fused_args, fused_spec)
     fused_out = fused_step.fused_step_plain(*fused_args, fused_spec)

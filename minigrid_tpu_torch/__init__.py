@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's module layout and semantics: packed int32
 cell words, a branchless batched step, the egocentric observation (its window
-gather a hand-written CUDA kernel), the single-room MiniGrid families, the
+gather a hand-written CUDA kernel), the single-room and multi-room MiniGrid
+families, the BabyAI levels built on ``BabyAILevel`` with their verifier, the
 vectorized auto-reset engine with its three reset strategies and ``rollout``,
 and ``FusedVectorEnv``, whose whole step (auto-reset and observation
 included) is one hand-written CUDA kernel.  Entry points run on CUDA unless the caller
@@ -29,6 +30,7 @@ from minigrid_tpu_torch.parallel.vector import VectorEnv, rollout
 from minigrid_tpu_torch.registry import make, make_vec, register, registered_ids, spec
 
 import minigrid_tpu_torch.envs  # noqa: F401  (populates the registry)
+import minigrid_tpu_torch.babyai  # noqa: F401  (the BabyAI ids)
 
 __all__ = [
     "Actions",

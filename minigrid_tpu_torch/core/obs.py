@@ -156,7 +156,8 @@ def encode_view(cells: torch.Tensor, vis_mask: torch.Tensor) -> torch.Tensor:
 
 def gen_obs_batch(states: EnvState, params: EnvParams) -> dict:
     """The observation dict of every env: image uint8[B, V, V, 3], direction
-    int32[B], mission int32[B, 4]."""
+    int32[B], mission int32[B, M] (M = 4 for the MiniGrid families, 43 for
+    a BabyAI instruction)."""
     cells, vis_mask = gen_obs_grid_batch(states, params)
     return {
         "image": encode_view(cells, vis_mask),

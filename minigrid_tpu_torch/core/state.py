@@ -54,7 +54,7 @@ class EnvState:
     terminated: torch.Tensor  # bool[B]
     truncated: torch.Tensor  # bool[B]
     rng: torch.Tensor  # int64[B, 2] — threefry key words (uint32 values)
-    mission: torch.Tensor  # int32[B, 4] — packed mission code
+    mission: torch.Tensor  # int32[B, M] — mission code (M = 4; BabyAI 43)
     max_steps: torch.Tensor  # int32[B] — per-episode limit; 0 = params.max_steps
     extra: Any = None  # None, a tensor or a dict of tensors, leading dim B
 
@@ -71,6 +71,9 @@ class EnvParams:
     max_steps: int = 100
     agent_view_size: int = 7
     see_through_walls: bool = False
+    # BabyAI only: clauses succeed or fail only through an explicit `done`
+    # action (the reference's BABYAI_DONE_ACTIONS mode)
+    babyai_done_actions: bool = False
 
 
 def map_tree(fn: Callable, *trees):
@@ -122,7 +125,9 @@ def base_state(
     max_steps=0,
     has_boxes: bool = True,
 ) -> EnvState:
-    """A fresh batch of states at step 0.  ``has_boxes=False`` drops the
+    """A fresh batch of states at step 0.  ``max_steps`` is one limit for
+    every env (a Python int) or one per env (an int tensor ``[B]``), 0
+    meaning ``params.max_steps``.  ``has_boxes=False`` drops the
     ``box_contains``/``carrying_contains`` planes; ``extra`` passes
     through."""
     b, w, h = grid.shape
@@ -145,6 +150,8 @@ def base_state(
         truncated=torch.zeros((b,), dtype=torch.bool, device=dev),
         rng=rng.contiguous(),
         mission=mission.to(torch.int32).contiguous(),
-        max_steps=torch.full((b,), max_steps, dtype=torch.int32, device=dev),
+        max_steps=(max_steps.to(device=dev, dtype=torch.int32).expand(b).contiguous()
+                   if isinstance(max_steps, torch.Tensor)
+                   else torch.full((b,), max_steps, dtype=torch.int32, device=dev)),
         extra=map_tree(lambda t: t.contiguous(), extra),
     )

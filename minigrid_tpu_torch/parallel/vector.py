@@ -20,7 +20,9 @@ chooses them unless the caller names one:
   previous level (a "stale replay"); with ``strict_refill=True`` it
   regenerates from its own stream instead, and every served level is fresh.
   ``step_nofill`` + ``refill(K)`` every K steps is the program the benchmark
-  drives.
+  drives.  A family with ``generate_attempt`` (BabyAI) refills best-effort
+  with ONE unvalidated draw a slot: where the draw is invalid the slot keeps
+  its previous level, and is marked fresh all the same.
 
 ``final_obs=True`` adds the observation of the state each step ended in,
 before the auto-reset, as ``info["final_obs"]``.  :func:`rollout` drives B
@@ -132,6 +134,7 @@ class VectorEnv:
                 f"pool_refill={pool_refill} must divide 2*num_envs={2 * num_envs}")
         self.pool_refill = pool_refill
         self.best_effort = not strict_refill and reset_strategy == "pooled"
+        self.best_effort_refill = self.best_effort and hasattr(env, "generate_attempt")
 
     # -- helpers -----------------------------------------------------------
     def _gen_many(self, keys: torch.Tensor) -> EnvState:
@@ -281,7 +284,13 @@ class VectorEnv:
         key, k = rng.split(key).unbind(0)
         off = (tick * c) % ring // n * n if n < ring else torch.zeros_like(tick)
         idx = off.to(torch.int64) + torch.arange(n, device=self.device)
-        cand = self._gen_many(rng.split(k, n))
+        if self.best_effort_refill:
+            cand, ok = self.env.generate_attempt(rng.split(k, n), self.params,
+                                                 self.device)
+            cand = tree_select(ok, cand, map_fields(lambda p: p.index_select(0, idx),
+                                                    pool))
+        else:
+            cand = self._gen_many(rng.split(k, n))
         pool = map_fields(lambda p, x: p.index_copy(0, idx, x), pool, cand)
         flags = flags.index_fill(0, idx, True)
         return pool, flags, tick + windows, key

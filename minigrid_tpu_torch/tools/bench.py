@@ -18,9 +18,12 @@ auto-reset (regeneration from the env's own generator) fused in.  With
 from one ``randint`` over ``[T, B]`` drawn before the timer starts, so the
 two engines compare like with like.
 
-``--env ID`` times another registered env instead, through ``VectorEnv.step``
-with the reset strategy and refill window the family picks by default (a
-pooled family refills one window a step), the actions predrawn.
+``--env ID`` times another registered env instead (a MiniGrid or a BabyAI
+id), through ``VectorEnv.step`` with the reset strategy and refill window
+the family picks by default (a pooled family refills one window a step,
+BabyAI best-effort: one unvalidated draw a slot), the actions predrawn; the
+strategy, the refill window and the ring's fresh fraction print beside the
+rate, with ``--profile N`` too.
 
 Prints one JSON line.  Run on the card:
 
@@ -29,9 +32,12 @@ Prints one JSON line.  Run on the card:
     python -m minigrid_tpu_torch.tools.bench [--fused] --profile 64
     python -m minigrid_tpu_torch.tools.bench --env MiniGrid-MultiRoom-N6-v0 \
         [--steps 256 | --profile 16]
+    python -m minigrid_tpu_torch.tools.bench --env BabyAI-GoTo-v0 [--profile 4]
 
 ``--profile N`` traces N steady-state steps with ``torch.profiler`` instead
-and prints where the time goes: kernel launches per step, device busy time
+and prints where the time goes: kernel launches and top-level torch ops per
+step (with ``--env ID --device cpu`` the ops count on the CPU), device busy
+time
 against wall time, the kernels that take the most device time, and (pooled
 engine) each layer of the step run on its own (host-synced µs and launches
 per step).
@@ -163,6 +169,17 @@ def loop_steps(venv: VectorEnv, state, actions: torch.Tensor,
     return acc, state
 
 
+def ring_stats(venv: VectorEnv, state) -> dict:
+    """The strategy and refill window, and for a pooled ring the auto-resets
+    it served fresh and stale and the fresh fraction."""
+    out = {"strategy": venv.reset_strategy, "pool_refill": venv.pool_refill}
+    if isinstance(state, PooledState):
+        n_fresh, n_stale = int(state.n_fresh), int(state.n_stale)
+        out.update(n_fresh=n_fresh, n_stale=n_stale,
+                   fresh_frac=n_fresh / (n_fresh + n_stale) if n_fresh + n_stale else None)
+    return out
+
+
 def measure_steps(venv: VectorEnv, num_steps: int, reps: int = 2) -> dict:
     """Env-steps/s of :func:`loop_steps`, actions predrawn: the reset and
     the action draw of each rep happen before its timer starts; best of
@@ -178,13 +195,8 @@ def measure_steps(venv: VectorEnv, num_steps: int, reps: int = 2) -> dict:
         float(acc)
         dt = time.perf_counter() - t0
         best = dt if best is None else min(best, dt)
-    out = {**_rate(venv.num_envs, num_steps, best), "predrawn": True,
-           "strategy": venv.reset_strategy, "pool_refill": venv.pool_refill}
-    if isinstance(state, PooledState):
-        n_fresh, n_stale = int(state.n_fresh), int(state.n_stale)
-        out.update(n_fresh=n_fresh, n_stale=n_stale,
-                   fresh_frac=n_fresh / (n_fresh + n_stale) if n_fresh + n_stale else None)
-    return out
+    return {**_rate(venv.num_envs, num_steps, best), "predrawn": True,
+            **ring_stats(venv, state)}
 
 
 def _timed(fn, reps: int) -> tuple[float, object]:
@@ -311,12 +323,17 @@ def _trace(body, num_steps: int, top: int) -> dict:
             kernels.append((us, e.count, e.key))
     kernels.sort(reverse=True)
     busy_us = sum(us for us, _, _ in kernels)
+    # the torch ops the host issued (top-level ATen calls): launches on a
+    # card, and the stand-in for them on the CPU
+    torch_ops = sum(1 for e in prof.events()
+                    if e.cpu_parent is None and e.name.startswith("aten::"))
     return {
         "num_steps": num_steps,
         "wall_us_per_step": wall / num_steps * 1e6,
         "device_busy_us_per_step": busy_us / num_steps,
         "device_idle_share": 1 - busy_us / (wall * 1e6),
         "launches_per_step": launches / num_steps,
+        "torch_ops_per_step": torch_ops / num_steps,
         "device_ops_per_step": sum(n for _, n, _ in kernels) / num_steps,
         "top_kernels": [{"name": name[:120], "us_per_step": us / num_steps,
                          "calls_per_step": n / num_steps}
@@ -366,10 +383,12 @@ def profile_steps(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
     float(acc)
 
     def body():
-        float(loop_steps(venv, state, actions)[0])
+        nonlocal state
+        acc, state = loop_steps(venv, state, actions)
+        float(acc)
 
-    return {"num_envs": venv.num_envs, "strategy": venv.reset_strategy,
-            **_trace(body, num_steps, top)}
+    out = _trace(body, num_steps, top)
+    return {"num_envs": venv.num_envs, **out, **ring_stats(venv, state)}
 
 
 def main(argv=None) -> None:
@@ -383,19 +402,28 @@ def main(argv=None) -> None:
                     help="draw each run's actions before its timer starts")
     ap.add_argument("--env", metavar="ID",
                     help="time this env id through VectorEnv.step, default strategy")
+    ap.add_argument("--num-envs", type=int, default=NUM_ENVS,
+                    help="with --env: the batch (default %(default)s)")
+    ap.add_argument("--pool-refill", type=int, default=None,
+                    help="with --env: the refill window (default: the family's)")
+    ap.add_argument("--device", default=None,
+                    help="with --env: 'cpu' to count a step's torch ops on the CPU")
     args = ap.parse_args(argv)
     if args.env:
-        venv = minigrid_tpu_torch.make_vec(args.env, NUM_ENVS)
+        venv = minigrid_tpu_torch.make_vec(args.env, args.num_envs,
+                                           pool_refill=args.pool_refill,
+                                           device=args.device)
+        where = card() if venv.device.type == "cuda" else {"kind": "cpu"}
         if args.profile:
             print(json.dumps({"env": args.env, **profile_steps(venv, args.profile),
-                              "device": card()}))
+                              "device": where}))
             return
         result = measure_steps(venv, args.steps)
         print(json.dumps({
-            "metric": f"env_steps_per_sec ({NUM_ENVS} envs, {args.env}, "
+            "metric": f"env_steps_per_sec ({args.num_envs} envs, {args.env}, "
                       f"{venv.reset_strategy} auto-reset, PyTorch port)",
             "value": result["env_steps_per_sec"], "unit": "steps/s", **result,
-            "device": card()}))
+            "device": where}))
         return
     if args.fused:
         fvenv = make_fused()

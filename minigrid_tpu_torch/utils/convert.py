@@ -6,8 +6,11 @@ dicts) and returns the port's state on a device; ``state_to_numpy`` goes the
 other way, in the JAX package's dtypes (packed grids and PRNG keys as
 uint32).  The port never sees a JAX object: the caller turns a JAX pytree
 into such a dict.  An ``EnvState``'s ``extra`` is ``None``, an array or a
-dict of arrays (dicts may nest); it crosses as int32, which is what every
-family keeps there.
+dict of arrays (dicts may nest; a JAX dataclass there, such as BabyAI's
+instruction code and verifier state, crosses as a dict keyed by its field
+names).  Each leaf keeps its type: bool stays bool, uint32 (BabyAI's packed
+verifier planes) is int64 in the port and uint32 again on the way back, and
+every other integer leaf is int32.
 
 ``fused_state_from_numpy``/``fused_state_to_numpy`` carry the plane dict of
 ``FusedVectorEnv`` across: the JAX package keeps its grid as ``[N, LANES]``
@@ -67,6 +70,24 @@ def _convert(fields: dict, dtypes: dict, device) -> dict:
             for k, dt in dtypes.items()}
 
 
+def _extra_to_tensor(value, device) -> torch.Tensor:
+    arr = np.asarray(value)
+    if arr.dtype == np.bool_:
+        return torch.from_numpy(arr.copy()).to(device)
+    if arr.dtype == np.uint32:
+        return _to_tensor("extra", arr, torch.int64, device)
+    return _to_tensor("extra", arr, torch.int32, device)
+
+
+def _extra_to_numpy(t: torch.Tensor) -> np.ndarray:
+    arr = t.detach().cpu().numpy()
+    if arr.dtype == np.int64:
+        if arr.size and (arr.min() < 0 or arr.max() > 0xFFFFFFFF):
+            raise ValueError("an int64 extra leaf holds values outside uint32")
+        return arr.astype(np.uint32)
+    return arr
+
+
 def state_from_numpy(fields: dict, device=None):
     """numpy fields -> ``EnvState``, or ``PooledState`` when ``fields`` has
     ``envs``/``pool``.  Absent box planes and ``extra`` are ``None``."""
@@ -77,8 +98,7 @@ def state_from_numpy(fields: dict, device=None):
                            pool=state_from_numpy(fields["pool"], dev),
                            **_convert(rest, _POOL_DTYPES, dev))
     rest = {k: v for k, v in fields.items() if k != "extra"}
-    extra = map_tree(lambda v: _to_tensor("extra", v, torch.int32, dev),
-                     fields.get("extra"))
+    extra = map_tree(lambda v: _extra_to_tensor(v, dev), fields.get("extra"))
     return EnvState(**_convert(rest, _ENV_DTYPES, dev), extra=extra)
 
 
@@ -91,7 +111,7 @@ def state_to_numpy(state) -> dict:
         if isinstance(v, EnvState):
             out[f.name] = state_to_numpy(v)
         elif f.name == "extra":
-            out[f.name] = map_tree(lambda t: t.detach().cpu().numpy(), v)
+            out[f.name] = map_tree(_extra_to_numpy, v)
         elif v is None:
             out[f.name] = None
         else:
@@ -131,7 +151,7 @@ def fused_state_to_numpy(fs: dict, lanes: int) -> dict:
     grid = out["grid"].reshape(out["grid"].shape[0], -1)
     if lanes < grid.shape[1]:
         raise ValueError(f"lanes={lanes} is below the grid's {grid.shape[1]} cells")
-    pad =np.full((grid.shape[0], lanes - grid.shape[1]), pack_word(C.WALL_TRIPLE),
+    pad = np.full((grid.shape[0], lanes - grid.shape[1]), pack_word(C.WALL_TRIPLE),
                   dtype=np.int32)
     out["grid"] = np.concatenate([grid, pad], axis=1)
     out["rng"] = out["rng"].astype(np.uint32)

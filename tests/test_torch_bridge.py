@@ -33,10 +33,21 @@ CPU = torch.device("cpu")
 
 # -- bridge helpers (used by the other test_torch_* files) -------------------
 
+def _numpy_tree(v):
+    """Arrays to numpy through dicts and dataclasses (BabyAI's instruction
+    code and verifier state), a dataclass becoming a dict keyed by its field
+    names."""
+    if dataclasses.is_dataclass(v):
+        return {f.name: _numpy_tree(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    if isinstance(v, dict):
+        return {k: _numpy_tree(x) for k, x in v.items()}
+    return np.asarray(v)
+
+
 def jax_to_numpy(tree) -> dict:
     """A JAX ``EnvState``/``PooledState`` -> numpy fields keyed by name;
     ``None`` leaves (absent box planes, ``extra``) are dropped, and a dict
-    ``extra`` becomes a dict of arrays."""
+    ``extra`` becomes a dict of arrays (a dataclass in it a dict too)."""
     out = {}
     for f in dataclasses.fields(tree):
         v = getattr(tree, f.name)
@@ -45,7 +56,7 @@ def jax_to_numpy(tree) -> dict:
         if dataclasses.is_dataclass(v):
             out[f.name] = jax_to_numpy(v)
         elif isinstance(v, dict):
-            out[f.name] = jax.tree_util.tree_map(np.asarray, v)
+            out[f.name] = _numpy_tree(v)
         else:
             out[f.name] = np.asarray(v)
     return out

@@ -525,6 +525,35 @@ def test_zoo_vector_env_on_the_card_gathers_every_step(cuda, env_id):
     _assert_same_fields(runs["cuda"][1], runs["cpu"][1])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id", ["BabyAI-GoToObjS4-v0", "BabyAI-OpenRedDoor-v0",
+                                    "BabyAI-GoTo-v0"])
+def test_babyai_on_the_card_gathers_every_step(cuda, env_id):
+    """BabyAI at 4x4, 9x5 and 22x22, pooled with the best-effort refill at
+    B=64: one gather launch per observation, and the run of the CPU, the
+    verifier state included."""
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        venv = minigrid_tpu_torch.make_vec(env_id, 64, device=dev, max_steps=7)
+        assert venv.reset_strategy == "pooled" and venv.best_effort_refill
+        before = obs_gather.LAUNCHES
+        obs, st = venv.reset(rng.PRNGKey(5, dev))
+        r = np.random.default_rng(1)
+        steps = []
+        for _ in range(16):
+            a = torch.from_numpy(r.integers(0, 8, 64).astype(np.int32))
+            obs, st, reward, *_ = venv.step(st, a)
+            steps.append((obs["image"].cpu(), obs["mission"].cpu(),
+                          reward.cpu().view(torch.int32)))
+        runs[dev.type] = (steps, state_to_numpy(st), obs_gather.LAUNCHES - before)
+    assert runs["cuda"][2] == 17 and runs["cpu"][2] == 0
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert all(torch.equal(x, y) for x, y in zip(g, c))
+    _assert_same_fields(runs["cuda"][1], runs["cpu"][1])
+
+
 def _assert_same_fields(a: dict, b: dict, where: str = "") -> None:
     assert set(a) == set(b), where
     for k in a:

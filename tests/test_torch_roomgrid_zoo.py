@@ -49,7 +49,8 @@ ROOMGRID_IDS = [i for ids in FAMILIES.values() for i in ids]
 def test_the_roomgrid_families_have_20_ids():
     assert len(ROOMGRID_IDS) == 20 == len(set(ROOMGRID_IDS))
     assert set(ROOMGRID_IDS) <= set(minigrid_tpu_torch.registered_ids())
-    assert len(minigrid_tpu_torch.registered_ids()) == 71
+    # with the 49 BabyAI ids built on RoomGrid (tests/test_torch_babyai_*)
+    assert len(minigrid_tpu_torch.registered_ids()) == 120
 
 
 @pytest.mark.parametrize("env_id", ROOMGRID_IDS)

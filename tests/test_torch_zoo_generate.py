@@ -62,14 +62,16 @@ def port_keys(jkeys) -> torch.Tensor:
 
 
 def test_the_zoo_has_41_ids():
-    """The single-room zoo's 41 ids, beside the earlier families' and the
-    RoomGrid families' (``tests/test_torch_roomgrid_zoo.py``): 71 in all."""
+    """The single-room zoo's 41 ids, beside the earlier families', the
+    RoomGrid families' (``tests/test_torch_roomgrid_zoo.py``) and BabyAI's
+    (``tests/test_torch_babyai_generate_open_pickup.py``): 120 in all."""
+    from tests.test_torch_babyai_generate_open_pickup import BABYAI_IDS
     from tests.test_torch_roomgrid_zoo import ROOMGRID_IDS
 
     assert len(ZOO_IDS) == 41 == len(set(ZOO_IDS))
     assert minigrid_tpu_torch.registered_ids() == sorted(ZOO_IDS + EARLIER_IDS
-                                                         + ROOMGRID_IDS)
-    assert len(minigrid_tpu_torch.registered_ids()) == 71
+                                                         + ROOMGRID_IDS + BABYAI_IDS)
+    assert len(minigrid_tpu_torch.registered_ids()) == 120
 
 
 @pytest.mark.parametrize("env_id", ZOO_IDS + EARLIER_IDS)

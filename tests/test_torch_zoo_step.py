@@ -85,24 +85,30 @@ def assert_step_equal(got, want, where: str) -> None:
 
 
 def lockstep(jvenv, venv, seed: int, steps: int, num_actions: int = 8,
-             jax_reset: bool = True):
+             jax_reset: bool = True, to_jax=None, watch=None):
     """Reset and step both engines with the same numpy actions; returns the
     per-step (rewards, episode ends) and both final states.  Without
     ``jax_reset`` the JAX engine starts from the port's reset state (an
-    ``EnvState`` batch)."""
+    ``EnvState`` batch), made a JAX state by ``to_jax`` (numpy fields ->
+    JAX state; :func:`_jax_state` by default).  ``watch(t, state, out)``
+    sees each step's port state before the step and the step's
+    (obs, state, reward, terminated, truncated, info)."""
     obs, st = venv.reset(rng.PRNGKey(seed, CPU))
     if jax_reset:
         key = jax.random.PRNGKey(seed)
         jobs, jst = jax.jit(jvenv.reset).lower(key).compile(INTEGER_ONLY)(key)
         assert_obs_equal(obs, jobs, "reset: ")
     else:
-        jst = _jax_state(state_to_numpy(st))
+        jst = (to_jax or _jax_state)(state_to_numpy(st))
     r = np.random.default_rng(seed)
     rewards, ends = [], 0
     for t in range(steps):
         a = r.integers(0, num_actions, venv.num_envs).astype(np.int32)
         jo, jst, jr, jte, jtr, jinfo = jvenv.step(jst, jnp.asarray(a))
-        o, st, rew, te, tr, info = venv.step(st, torch.from_numpy(a))
+        out = venv.step(st, torch.from_numpy(a))
+        if watch is not None:
+            watch(t, st, out)
+        o, st, rew, te, tr, info = out
         assert_step_equal((o, rew, te, tr), (jo, jr, jte, jtr), f"step {t}: ")
         assert set(info) == set(jinfo)
         if "final_obs" in info:
