@@ -34,8 +34,8 @@ printing a result:
 
    then the zoo: one id of each single-room family through
    ``make_vec(id, 4096)`` with the reset strategy and refill window the
-   family picks (checked against the JAX package's choice), driven 32
-   steps at the preset ``max_steps`` and 32 at ``max_steps=16`` with the
+   family picks (checked against the JAX package's choice), driven 16
+   steps at the preset ``max_steps`` and 16 at ``max_steps=16`` with the
    launch counts zeroed before each (one ``obs_gather`` launch per
    observation, none of ``fused_step``), the ranges of image, direction,
    mission and reward checked; the gather bitwise against its plain version
@@ -50,7 +50,7 @@ printing a result:
    BlockedUnlockPickup, Unlock, KeyCorridorS6R3, ObstructedMaze-Full on the
    RoomGrid builder, pooled with 64-level windows; LockedRoom and
    Playground, fused) through ``make_vec(id, 4096)`` at the strategy the
-   JAX package picks, 32 steps at the preset ``max_steps`` and 64 at 16
+   JAX package picks, 16 steps at the preset ``max_steps`` and 32 at 16
    with the launch counts zeroed before each (the ring's fresh fraction
    reported), the gather bitwise on each family's states and on
    KeyCorridorS3R1's 7x3 grid (narrower than the view) at the ragged
@@ -61,17 +61,32 @@ printing a result:
    then BabyAI: six levels (GoToRedBall, GoTo's 22x22 maze, GoToImpUnlock,
    OpenDoorsOrderN4, PickupDistDebug, GoToObjS4's 4x4) through
    ``make_vec(id, 4096)``, pooled at the JAX package's windows with the
-   best-effort refill, a walk of 16 steps at ``max_steps`` 4 with the launch
+   best-effort refill, a walk of 8 steps at ``max_steps`` 4 with the launch
    counts zeroed before it (one ``obs_gather`` launch per observation, none
    of ``fused_step``; the ring's fresh fraction), the gather bitwise on each
    level's states and on OpenRedDoor's 9x5 at B=4097, card == CPU at B=64
-   pooled for 24 steps (verifier state included; GoToObjS4 at its
-   per-episode ``max_steps`` of 16), env-steps/s at the preset limits, and
-   the launches per step of GoToRedBall and GoTo under ``torch.profiler``;
+   pooled for 8 steps (verifier state included; GoToObjS4 at its
+   per-episode ``max_steps`` of 16), env-steps/s at the preset limits (best
+   of 2 x 16 steps), and the launches of one step of GoToRedBall and GoTo
+   under ``torch.profiler``;
+
+   then (phase 4e) the level generator and the rest of BabyAI, and the
+   dataset envs: BossLevel (22x22), SynthS5R2 (13x9, a locked room without
+   implicit unlocking), PutNextS7N4Carrying (13x7, the carried start),
+   KeyInBox (the key in a box), MoveTwoAcrossS8N9 (15x8, two PutNext clauses
+   in sequence), OneRoomS20 (20x20), pooled at the JAX package's windows
+   with the best-effort refill, and the five dataset envs, fused, through
+   ``make_vec(id, 4096)``: a walk of 8 steps (BabyAI at ``max_steps`` 4)
+   with the launch counts zeroed before it, the gather bitwise on its
+   states with the flipped-bit self-check, card == CPU at B=64 for 8
+   steps, env-steps/s (best of 2 x 32 steps); the gather at Directions'
+   3x3 with V=3 and at OneRoomS20's 20x20 on the ragged B=4097; BossLevel's
+   launches per step over 2 steps under ``torch.profiler``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
-   16x16, 19x19, 22x22, 4x4 and 9x5 states of phase 4), time the fused step
+   16x16, 19x19, 22x22, 4x4 and 9x5 states of phase 4, OneRoomS20's 20x20
+   and Directions' 3x3 at V=3), time the fused step
    at B=32768
    beside B=4096 with its bound, and time both engines end to end with the
    actions of each run drawn before its timer starts.
@@ -119,9 +134,11 @@ ZOO = (
     ("MiniGrid-Dynamic-Obstacles-16x16-v0", "fused", 256),
     ("MiniGrid-MultiRoom-N6-v0", "pooled", 32),
 )
-ZOO_STEPS = 32  # each walk; 128 before the multi-room phase was added
+# each walk; 128 before the multi-room phase was added, 32 before the
+# level generator's phase (4e)
+ZOO_STEPS = 16
 ZOO_SHORT_EPISODE = 16  # max_steps of the second walk
-ZOO_TIMED_STEPS = 32
+ZOO_TIMED_STEPS = 16  # best of 2 (zoo, multi-room); 32 before phase 4e
 ZOO_ROLLOUT_STEPS = 64
 MULTIROOM = "MiniGrid-MultiRoom-N6-v0"
 
@@ -138,8 +155,10 @@ ROOMGRID = (
     ("MiniGrid-LockedRoom-v0", "fused", 256),
     ("MiniGrid-Playground-v0", "fused", 256),
 )
-ROOMGRID_STEPS = 32  # at the preset max_steps (100 to 3,600)
-ROOMGRID_SHORT_STEPS = 64  # at ZOO_SHORT_EPISODE: four waves turn the ring over
+# at the preset max_steps (100 to 3,600); 32 before phase 4e
+ROOMGRID_STEPS = 16
+# at ZOO_SHORT_EPISODE: two waves; 64 (four) before phase 4e
+ROOMGRID_SHORT_STEPS = 32
 ROOMGRID_CPU_STEPS = 24
 ROOMGRID_PROFILED = ("MiniGrid-KeyCorridorS6R3-v0", "MiniGrid-ObstructedMaze-Full-v0")
 ROOMGRID_PROFILE_STEPS = 4  # each traced step is 6,000-11,000 launches
@@ -160,13 +179,44 @@ BABYAI = (
 # the walk, at BABYAI_EPISODE: four waves turn the ring over (a walk of 32
 # steps at 8 took the phase to 332 s on an H100 80GB HBM3 at 700 W, GoTo's
 # 22x22 maze 126 s of it)
-BABYAI_STEPS = 16
+# 8 steps (two waves) since phase 4e; 16 before, and 32 at max_steps 8 before that
+BABYAI_STEPS = 8
 BABYAI_EPISODE = 4
 BABYAI_CPU_ENVS = 64  # pooled, best-effort refill
-BABYAI_CPU_STEPS = 24
+BABYAI_CPU_STEPS = 8  # 24 before phase 4e
+BABYAI_TIMED_STEPS = 16  # best of 2; 32 before phase 4e
 BABYAI_PROFILED = ("BabyAI-GoToRedBall-v0", "BabyAI-GoTo-v0")
-BABYAI_PROFILE_STEPS = 4
+BABYAI_PROFILE_STEPS = 1  # 4 before phase 4e
 BABYAI_9X5 = "BabyAI-OpenRedDoor-v0"
+
+# phase 4e: the level generator's, PutNext's, Unlock's and the other BabyAI
+# levels, and the five dataset envs, with the strategy and window the JAX
+# package picks at B=4096 (the dataset envs are plain Envs: fused)
+SLICE_B = (
+    ("BabyAI-BossLevel-v0", "pooled", 16),  # LevelGen on 3x3 rooms of 8: 22x22
+    ("BabyAI-SynthS5R2-v0", "pooled", 16),  # 13x9, implicit_unlock=False, locked room
+    ("BabyAI-PutNextS7N4Carrying-v0", "pooled", 16),  # 13x7, the carried start
+    ("BabyAI-KeyInBox-v0", "pooled", 16),  # box planes: the key in a box
+    ("BabyAI-MoveTwoAcrossS8N9-v0", "pooled", 16),  # 15x8, two PutNext in sequence
+    ("BabyAI-OneRoomS20-v0", "pooled", 512),  # 20x20, one room
+    ("ContrastiveDataset-v0", "fused", 256),
+    ("ContrastiveTrajectoryDataset-v0", "fused", 256),  # pickups pay +1 or -1
+    ("MiniGrid-Negated-Simple-v0", "fused", 256),  # pickups pay +1 or -1
+    ("DirectionsDataset-v0", "fused", 256),  # 3x3 at V=3, scripted turns
+    ("BlocksDataset-v0", "fused", 256),  # scripted moves from the state's stream
+)
+SLICE_B_STEPS = 8  # the walk: two waves at SLICE_B_EPISODE (BabyAI)
+SLICE_B_EPISODE = 4
+SLICE_B_CPU_STEPS = 8
+SLICE_B_TIMED_STEPS = 32  # best of 2
+SLICE_B_PROFILED = "BabyAI-BossLevel-v0"
+# a traced step of BossLevel is 54,451 launches; the summary of the trace
+# takes about 30 s a step on the card's host
+SLICE_B_PROFILE_STEPS = 2
+DIRECTIONS = "DirectionsDataset-v0"  # 3x3, V=3: the smallest grid and view
+ONE_ROOM_20 = "BabyAI-OneRoomS20-v0"
+# the ids whose rewards go below 0
+NEGATIVE_REWARDS = ("Dynamic-Obstacles", "ContrastiveTrajectory", "Negated")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -659,7 +709,7 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
         raise AssertionError(f"{env_id}: image fields out of range")
     if not bool(((direction >= 0) & (direction < 4)).all()):
         raise AssertionError(f"{env_id}: direction out of range")
-    if grammar:
+    if grammar and mission.shape[1] == 43:
         # BabyAI: the 43-int instruction code, its sequencing and clause kinds
         # in range and the first clause set
         kinds = mission[:, 3:7]
@@ -667,9 +717,13 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
                 or not bool(((kinds >= 0) & (kinds <= 4)).all())
                 or not bool((kinds[:, 0] > 0).all())):
             raise AssertionError(f"{env_id}: missions out of range")
+    elif grammar:
+        # a template grammar (Negated, Directions): a code per env
+        if mission.shape[0] != NUM_ENVS or mission.dtype != torch.int32:
+            raise AssertionError(f"{env_id}: missions {tuple(mission.shape)}")
     elif not bool((mission[:, None, :] == codes[None]).all(-1).any(-1).all()):
         raise AssertionError(f"{env_id}: a mission outside the env's codes")
-    floor = -1.0 if "Dynamic-Obstacles" in env_id else 0.0
+    floor = -1.0 if any(f in env_id for f in NEGATIVE_REWARDS) else 0.0
     if not (floor <= r_lo and r_hi <= 1.0):
         raise AssertionError(f"{env_id}: reward outside [{floor}, 1]: {r_lo}..{r_hi}")
     envs = state.envs if hasattr(state, "envs") else state
@@ -984,7 +1038,7 @@ def drive_babyai(dev, counters: dict, obs_gather, card: str) -> dict:
             final=dynamic_limit if is_s4 else None)
         rate = bench.measure_steps(minigrid_tpu_torch.make_vec(env_id, NUM_ENVS,
                                                                device=dev),
-                                   ZOO_TIMED_STEPS)
+                                   BABYAI_TIMED_STEPS)
         out["rates"][env_id] = rate
         log(f"  {env_id} {w}x{h}: {venv.reset_strategy}, pool_refill {venv.pool_refill}, "
             f"best-effort refill (as the JAX package picks); {BABYAI_STEPS} steps at "
@@ -996,7 +1050,7 @@ def drive_babyai(dev, counters: dict, obs_gather, card: str) -> dict:
             f"({BABYAI_CPU_STEPS} steps, {ends64} ends, verifier state included); "
             f"{rate['env_steps_per_sec']:.0f} env-steps/s, {rate['us_per_step']:.1f} "
             f"us/step ({rate['strategy']}/{rate['pool_refill']}, preset max_steps, "
-            f"predrawn, best of 2 x {ZOO_TIMED_STEPS} steps, fresh fraction "
+            f"predrawn, best of 2 x {BABYAI_TIMED_STEPS} steps, fresh fraction "
             f"{rate.get('fresh_frac')}); {time.perf_counter() - t_level:.1f} s [{card}]")
 
     # OpenRedDoor's 9x5 grid: two rooms of 5 side by side
@@ -1029,6 +1083,102 @@ def drive_babyai(dev, counters: dict, obs_gather, card: str) -> dict:
     return out
 
 
+# -- phase 4e: the level generator, PutNext, Unlock, other; the dataset envs -----
+
+def drive_slice_b(dev, counters: dict, obs_gather, card: str) -> dict:
+    """Every id of SLICE_B on the card: a walk of SLICE_B_STEPS (BabyAI at
+    SLICE_B_EPISODE; launch counts, the ring's fresh fraction), the gather
+    bitwise on its states with the flipped-bit self-check, card == CPU at
+    B=64, env-steps/s at the preset limits; the gather at Directions' 3x3 /
+    V=3 and OneRoomS20's 20x20 on a ragged batch; the launches per step of
+    SLICE_B_PROFILED.  Returns what the kernel table and PERF.md read."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.tools import bench
+
+    worst, out = 0, {"rates": {}, "inputs": {}, "fresh": {}, "seconds": {}}
+    for i, (env_id, strategy, refill) in enumerate(SLICE_B):
+        t_id = time.perf_counter()
+        babyai = env_id.startswith("BabyAI-")
+        # the dataset envs fix max_steps in their constructors
+        limit = {"max_steps": SLICE_B_EPISODE} if babyai else {}
+        walk = zoo_walk(dev, counters, env_id, seed=900 + i, steps=SLICE_B_STEPS, **limit)
+        venv = walk["venv"]
+        if (venv.reset_strategy, venv.pool_refill) != (strategy, refill):
+            raise AssertionError(f"{env_id}: strategy {venv.reset_strategy}/"
+                                 f"{venv.pool_refill}, the JAX package picks "
+                                 f"{strategy}/{refill}")
+        if venv.best_effort_refill != babyai:
+            raise AssertionError(f"{env_id}: best-effort refill {venv.best_effort_refill}")
+        ring = ""
+        if babyai:
+            n_fresh, n_stale = walk["fresh"]
+            waves = SLICE_B_STEPS // SLICE_B_EPISODE
+            if walk["ends"] < waves * NUM_ENVS or n_fresh + n_stale != walk["ends"]:
+                raise AssertionError(f"{env_id}: {walk['ends']} episode ends, ring "
+                                     f"served fresh {n_fresh} stale {n_stale}")
+            out["fresh"][env_id] = (n_fresh, n_stale)
+            ring = (f", ring fresh {n_fresh} stale {n_stale} (fresh fraction "
+                    f"{n_fresh / (n_fresh + n_stale)})")
+        elif env_id in (DIRECTIONS, "BlocksDataset-v0") and (
+                walk["ends"] < SLICE_B_STEPS // 2 * NUM_ENVS):
+            # scripted: every episode ends after one or two steps
+            raise AssertionError(f"{env_id}: only {walk['ends']} episode ends")
+        envs = walk["envs"]
+        v = venv.params.agent_view_size
+        w, h = venv.params.width, venv.params.height
+        worst = max(worst, check_zoo_gather(obs_gather, envs, v,
+                                            f"{env_id} {w}x{h} B={NUM_ENVS}", True))
+        out["inputs"][env_id] = {"grid": envs.grid, "pos": envs.agent_pos,
+                                 "dir": envs.agent_dir, "view": v}
+        ends64 = zoo_card_matches_cpu(dev, env_id, seed=1000 + i, steps=SLICE_B_CPU_STEPS,
+                                      num_envs=BABYAI_CPU_ENVS,
+                                      max_steps=SLICE_B_EPISODE if babyai else None)
+        rate = bench.measure_steps(minigrid_tpu_torch.make_vec(env_id, NUM_ENVS,
+                                                               device=dev),
+                                   SLICE_B_TIMED_STEPS)
+        out["rates"][env_id] = rate
+        out["seconds"][env_id] = time.perf_counter() - t_id
+        log(f"  {env_id} {w}x{h} V={v}: {venv.reset_strategy}, pool_refill "
+            f"{venv.pool_refill}{', best-effort refill' if babyai else ''} (as the JAX "
+            f"package picks); {SLICE_B_STEPS} steps at max_steps {venv.env.max_steps}: "
+            f"{walk['ends']} ends, {walk['seconds']:.2f} s{ring}; launches "
+            f"{walk['launches']}; rewards in [{walk['reward'][0]}, {walk['reward'][1]}]; "
+            f"gather bitwise, flipped-bit self-check caught; B={BABYAI_CPU_ENVS} card "
+            f"== CPU ({SLICE_B_CPU_STEPS} steps, {ends64} ends); "
+            f"{rate['env_steps_per_sec']:.0f} env-steps/s, {rate['us_per_step']:.1f} "
+            f"us/step ({rate['strategy']}/{rate['pool_refill']}, preset max_steps, "
+            f"predrawn, best of 2 x {SLICE_B_TIMED_STEPS} steps, fresh fraction "
+            f"{rate.get('fresh_frac')}); {out['seconds'][env_id]:.1f} s [{card}]")
+
+    # the smallest grid and view, and the widest one-room grid, each with
+    # one env in the last tile
+    t0 = time.perf_counter()
+    for env_id, seed in ((DIRECTIONS, 17), (ONE_ROOM_20, 19)):
+        env, params, st = doorkey_walk_states(dev, RAGGED_ENVS, steps=8, env_id=env_id,
+                                              seed=seed)
+        v = params.agent_view_size
+        worst = max(worst, check_zoo_gather(obs_gather, st, v, f"{env_id} "
+                                            f"B={RAGGED_ENVS}", True))
+        log(f"  {env_id} {env.width}x{env.height} V={v} gather: bitwise at "
+            f"B={RAGGED_ENVS}, flipped-bit self-check caught")
+    out["seconds"]["ragged gathers"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    prof = bench.profile_steps(minigrid_tpu_torch.make_vec(SLICE_B_PROFILED, NUM_ENVS,
+                                                           device=dev),
+                               SLICE_B_PROFILE_STEPS)
+    out["profiles"] = {SLICE_B_PROFILED: prof}
+    log(f"  {SLICE_B_PROFILED} B={NUM_ENVS} {prof['strategy']}/{prof['pool_refill']} "
+        f"under torch.profiler, {SLICE_B_PROFILE_STEPS} steps: "
+        f"{prof['launches_per_step']:.1f} launches/step, device busy "
+        f"{prof['device_busy_us_per_step']:.1f} us/step of "
+        f"{prof['wall_us_per_step']:.1f} wall, idle share "
+        f"{prof['device_idle_share']:.3f}; {time.perf_counter() - t0:.1f} s with the "
+        f"reset and the trace's summary [{card}]")
+    out["max_abs_err"] = worst
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -1039,13 +1189,14 @@ def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
     from minigrid_tpu_torch.core.obs import view_world_coords
 
     grid, pos, dirs = inputs["grid"], inputs["pos"], inputs["dir"]
+    v = inputs.get("view", VIEW)
     b, w, h = grid.shape
-    wx, wy = view_world_coords(pos, dirs, VIEW)
+    wx, wy = view_world_coords(pos, dirs, v)
     in_bounds = int(((wx >= 0) & (wx < w) & (wy >= 0) & (wy < h)).sum())
-    nbytes = b * (2 * 4 + 4) + in_bounds * 4 + b * VIEW * VIEW * 4
+    nbytes = b * (2 * 4 + 4) + in_bounds * 4 + b * v * v * 4
     # per view cell: direction selects (4), two coordinates (6), bounds (4),
     # address (2), select (1)
-    ops = b * VIEW * VIEW * 17
+    ops = b * v * v * 17
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1057,19 +1208,20 @@ def time_gather(obs_gather, inputs: dict) -> dict:
     from minigrid_tpu_torch.core.obs import view_world_coords
 
     grid, pos, dirs = inputs["grid"], inputs["pos"], inputs["dir"]
+    v = inputs.get("view", VIEW)
     b, w, h = grid.shape
-    kernel_ms = gpu_time_ms(lambda: obs_gather.gather_view(grid, pos, dirs, VIEW))
-    plain_ms = gpu_time_ms(lambda: obs_gather.gather_view_plain(grid, pos, dirs, VIEW))
+    kernel_ms = gpu_time_ms(lambda: obs_gather.gather_view(grid, pos, dirs, v))
+    plain_ms = gpu_time_ms(lambda: obs_gather.gather_view_plain(grid, pos, dirs, v))
     # library yardstick: one torch.gather over precomputed flat indices into
     # the grid with a grey-wall word appended per env for out-of-bounds cells
-    wx, wy = view_world_coords(pos, dirs, VIEW)
+    wx, wy = view_world_coords(pos, dirs, v)
     oob = (wx < 0) | (wx >= w) | (wy < 0) | (wy >= h)
-    flat = torch.where(oob, w * h, wx * h + wy).reshape(b, VIEW * VIEW).long()
+    flat = torch.where(oob, w * h, wx * h + wy).reshape(b, v * v).long()
     padded = torch.cat([grid.reshape(b, w * h),
                         torch.full((b, 1), obs_gather.WALL_PACKED, dtype=torch.int32,
                                    device=grid.device)], dim=1)
-    lib = torch.gather(padded, 1, flat).reshape(b, VIEW, VIEW)
-    if mismatches(lib, obs_gather.gather_view_plain(grid, pos, dirs, VIEW)):
+    lib = torch.gather(padded, 1, flat).reshape(b, v, v)
+    if mismatches(lib, obs_gather.gather_view_plain(grid, pos, dirs, v)):
         raise AssertionError("the library yardstick computes another function")
     library_ms = gpu_time_ms(lambda: torch.gather(padded, 1, flat))
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms}
@@ -1172,6 +1324,12 @@ def main() -> int:
     err = max(err, baby["max_abs_err"])
     log(f"  the BabyAI phase took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 4e: BabyAI slice B and the dataset envs")
+    t0 = time.perf_counter()
+    slice_b = drive_slice_b(dev, counters, obs_gather, card)
+    err = max(err, slice_b["max_abs_err"])
+    log(f"  the slice B phase took {time.perf_counter() - t0:.1f} s")
+
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)
     bound_ms, bound_by, work = gather_bound_ms(inputs)
@@ -1210,6 +1368,17 @@ def main() -> int:
             f"torch.gather {bi_times['library_ms'] * 1e3:.2f} us, bound "
             f"{bi_bound * 1e3:.3f} us ({bi_by}; {bi_work}), "
             f"{bi_bound / bi_times['ms']:.3f} of the bound [{card}]")
+
+    for env_id in (ONE_ROOM_20, DIRECTIONS):
+        si = slice_b["inputs"][env_id]
+        si_times = time_gather(obs_gather, si)
+        si_bound, si_by, si_work = gather_bound_ms(si)
+        _, w, h = si["grid"].shape
+        log(f"  obs_gather B={NUM_ENVS} {w}x{h} V={si['view']} ({env_id} states): "
+            f"kernel {si_times['ms'] * 1e3:.2f} us, plain {si_times['plain_ms'] * 1e3:.2f} "
+            f"us, torch.gather {si_times['library_ms'] * 1e3:.2f} us, bound "
+            f"{si_bound * 1e3:.3f} us ({si_by}; {si_work}), "
+            f"{si_bound / si_times['ms']:.3f} of the bound [{card}]")
 
     fused_times = time_fused(fused_step, fused_args, fused_spec)
     fused_out = fused_step.fused_step_plain(*fused_args, fused_spec)

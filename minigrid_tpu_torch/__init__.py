@@ -3,8 +3,9 @@
 The port keeps the JAX package's module layout and semantics: packed int32
 cell words, a branchless batched step, the egocentric observation (its window
 gather a hand-written CUDA kernel), the single-room and multi-room MiniGrid
-families, the BabyAI levels built on ``BabyAILevel`` with their verifier, the
-vectorized auto-reset engine with its three reset strategies and ``rollout``,
+families, every BabyAI level (on ``BabyAILevel`` or its grammar sampler
+``LevelGen``) with the verifier, the five dataset envs (every id of the JAX
+registry), the vectorized auto-reset engine with its three reset strategies and ``rollout``,
 and ``FusedVectorEnv``, whose whole step (auto-reset and observation
 included) is one hand-written CUDA kernel.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``.

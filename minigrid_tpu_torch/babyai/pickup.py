@@ -1,7 +1,7 @@
 """BabyAI Pickup levels, batch-first.
 
-Counterpart of ``minigrid_tpu/babyai/pickup.py`` but for PickupLoc, a
-``LevelGen`` level, which comes with the level generator.
+Counterpart of ``minigrid_tpu/babyai/pickup.py``; PickupLoc is a
+``LevelGen`` preset.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import torch
 
 from minigrid_tpu_torch.babyai import verifier as V
 from minigrid_tpu_torch.babyai.level import BabyAILevel
+from minigrid_tpu_torch.babyai.levelgen import LevelGen
 from minigrid_tpu_torch.core import grid_ops as G
 from minigrid_tpu_torch.core import rng
 
@@ -53,6 +54,17 @@ class UnblockPickup(BabyAILevel):
         valid = ~self.objs_reachable(b, params)
         instr = _pickup_one_of(objs, rng.randint(k[4], (), 0, 20))
         return self.finish_level(b, instr, params, valid)
+
+
+class PickupLoc(LevelGen):
+    """Pick up an object, maybe named by its location."""
+
+    name = "PickupLoc"
+
+    def __init__(self, **kwargs):
+        super().__init__(action_kinds=["pickup"], instr_kinds=["action"], num_rows=1,
+                         num_cols=1, num_dists=8, locked_room_prob=0, locations=True,
+                         unblocking=False, **kwargs)
 
 
 class PickupDist(BabyAILevel):

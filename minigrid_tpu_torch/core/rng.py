@@ -191,8 +191,11 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor,
     for ``u = uniform(key, (n,), tiny, 1)``, the first index on ties, index 0
     when every logit is ``-inf``.  The noise is strictly increasing in ``u``
     and its neighbouring values lie several ulps apart, so the index does not
-    depend on the last bit of ``log``; with logits of 0 and ``-inf`` (every
-    draw of the JAX package) it is JAX's index exactly.  JAX's
+    depend on the last bit of ``log``: with logits of 0 and ``-inf`` (nearly
+    every draw of the JAX package) it is JAX's index exactly.  Other finite
+    logits must be computed as JAX computes them: BlocksDataset's are
+    ``log(p)`` of float32 weights, and with the same float32 ``log(p)`` the
+    index is JAX's on 2^20 keys (``tests/test_torch_dataset_envs.py``).  JAX's
     ``use_high_dynamic_range_gumbel`` mode draws two uniforms per entry; no
     caller sets it, and it raises here."""
     if mode != "low":

@@ -1,13 +1,20 @@
-"""Environment zoo + id registrations (the families ported so far), with the
-JAX package's ids and preset kwargs: the single-room zoo, and the multi-room
-families built on ``core/roomgrid.py`` (Unlock, UnlockPickup,
-BlockedUnlockPickup, KeyCorridor, ObstructedMaze) or beside it (LockedRoom,
-Playground)."""
+"""Environment zoo + id registrations, with the JAX package's ids and preset
+kwargs: the single-room zoo, the multi-room families built on
+``core/roomgrid.py`` (Unlock, UnlockPickup, BlockedUnlockPickup,
+KeyCorridor, ObstructedMaze) or beside it (LockedRoom, Playground), and the
+five dataset envs (Contrastive, ContrastiveTrajectory, Negated-Simple,
+Directions, Blocks)."""
 
 from __future__ import annotations
 
 from minigrid_tpu_torch.envs.blockedunlockpickup import BlockedUnlockPickupEnv
+from minigrid_tpu_torch.envs.blocks_dataset import BlocksDataset
+from minigrid_tpu_torch.envs.contrastive import (
+    ContrastiveDataset,
+    ContrastiveTrajectoryDataset,
+)
 from minigrid_tpu_torch.envs.crossing import CrossingEnv
+from minigrid_tpu_torch.envs.directions_dataset import DirectionsDataset
 from minigrid_tpu_torch.envs.distshift import DistShiftEnv
 from minigrid_tpu_torch.envs.doorkey import DoorKeyEnv
 from minigrid_tpu_torch.envs.dynamicobstacles import DynamicObstaclesEnv
@@ -21,6 +28,7 @@ from minigrid_tpu_torch.envs.lavagap import LavaGapEnv
 from minigrid_tpu_torch.envs.lockedroom import LockedRoomEnv
 from minigrid_tpu_torch.envs.memory import MemoryEnv
 from minigrid_tpu_torch.envs.multiroom import MultiRoomEnv
+from minigrid_tpu_torch.envs.negated_goals import NegatedEnv, NegatedSimple
 from minigrid_tpu_torch.envs.obstructedmaze import (
     ObstructedMaze_1Dlhb,
     ObstructedMaze_2Dl,
@@ -157,6 +165,13 @@ register("MiniGrid-ObstructedMaze-2Q-v0", ObstructedMaze_Full,
          num_rooms_visited=11)
 register("MiniGrid-ObstructedMaze-Full-v0", ObstructedMaze_Full)
 
+# --- the dataset envs ---
+register("ContrastiveDataset-v0", ContrastiveDataset)
+register("ContrastiveTrajectoryDataset-v0", ContrastiveTrajectoryDataset)
+register("MiniGrid-Negated-Simple-v0", NegatedSimple)
+register("DirectionsDataset-v0", DirectionsDataset)
+register("BlocksDataset-v0", BlocksDataset)
+
 # --- Unlock family ---
 register("MiniGrid-Unlock-v0", UnlockEnv)
 register("MiniGrid-UnlockPickup-v0", UnlockPickupEnv)
@@ -164,7 +179,11 @@ register("MiniGrid-BlockedUnlockPickup-v0", BlockedUnlockPickupEnv)
 
 __all__ = [
     "BlockedUnlockPickupEnv",
+    "BlocksDataset",
+    "ContrastiveDataset",
+    "ContrastiveTrajectoryDataset",
     "CrossingEnv",
+    "DirectionsDataset",
     "DistShiftEnv",
     "DoorKeyEnv",
     "DynamicObstaclesEnv",
@@ -178,6 +197,8 @@ __all__ = [
     "LockedRoomEnv",
     "MemoryEnv",
     "MultiRoomEnv",
+    "NegatedEnv",
+    "NegatedSimple",
     "ObstructedMazeEnv",
     "ObstructedMaze_1Dlhb",
     "ObstructedMaze_2Dl",

@@ -18,8 +18,10 @@ auto-reset (regeneration from the env's own generator) fused in.  With
 from one ``randint`` over ``[T, B]`` drawn before the timer starts, so the
 two engines compare like with like.
 
-``--env ID`` times another registered env instead (a MiniGrid or a BabyAI
-id), through ``VectorEnv.step`` with the reset strategy and refill window
+``--env ID`` times another registered env instead (any registered id: a
+MiniGrid, a BabyAI or a dataset env, whose action count, 1 for Blocks or 4
+for Directions, the random actions follow), through ``VectorEnv.step`` with
+the reset strategy and refill window
 the family picks by default (a pooled family refills one window a step,
 BabyAI best-effort: one unvalidated draw a slot), the actions predrawn; the
 strategy, the refill window and the ring's fresh fraction print beside the
@@ -259,8 +261,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _launches(prof) -> int:
-    return sum(e.count for e in prof.key_averages() if e.key in (
+def _launches(prof, averages=None) -> int:
+    """Kernel launches in a trace (``averages``: its ``key_averages()``, if
+    already made: summarising a long trace takes seconds)."""
+    averages = prof.key_averages() if averages is None else averages
+    return sum(e.count for e in averages if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
 
 
@@ -314,8 +319,9 @@ def _trace(body, num_steps: int, top: int) -> dict:
         t0 = time.perf_counter()
         body()
         wall = time.perf_counter() - t0
-    kernels, launches = [], _launches(prof)
-    for e in prof.key_averages():
+    averages = prof.key_averages()
+    kernels, launches = [], _launches(prof, averages)
+    for e in averages:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:

@@ -5,8 +5,9 @@ Every one of the 13 Open and 5 Pickup ids generates, from 32 threefry keys,
 bitwise the levels of the jitted JAX ``env.generate``, with
 ``mission_text`` equal to the JAX package's string (the helpers and the
 compile options are ``tests/test_torch_babyai_generate_goto.py``'s).  Then
-the slice as a whole: the registry holds the 71 earlier ids and exactly the
-49 BabyAI ids of ``goto.py``, ``open.py`` and ``pickup.py``; the state
+the slice as a whole: the registry holds the 71 earlier ids, the 49 BabyAI
+ids of ``goto.py``, ``open.py`` and ``pickup.py`` and those of the later
+slices, every id of the JAX registry; the state
 bridge carries a BabyAI state's ``extra`` (bool, int32 and uint32 leaves)
 both ways; a BabyAI ``make_vec`` without ``device`` needs a card.  (That
 no module of the port, ``babyai/`` included, imports JAX or the JAX
@@ -36,7 +37,7 @@ from tests.test_torch_babyai_generate_goto import (
     check_registry,
     check_strategy,
 )
-from tests.test_torch_bridge import _assert_fields, jax_to_numpy
+from tests.test_torch_bridge import _assert_fields, assert_registry_complete, jax_to_numpy
 from tests.test_torch_zoo_generate import EARLIER_IDS, ZOO_IDS
 from tests.test_torch_roomgrid_zoo import ROOMGRID_IDS
 
@@ -52,18 +53,19 @@ BABYAI_IDS = GOTO_IDS + OPEN_IDS + PICKUP_IDS
 
 
 def test_the_babyai_slice_has_49_ids():
-    """71 earlier ids and the 49 of this slice: 120.  The level generator's
-    ids (GoToSeq, PickupLoc, ...) are not registered yet."""
+    """71 earlier ids, the 49 of this slice, the level generator's, PutNext,
+    Unlock and other 46 (``tests/test_torch_babyai_levelgen.py``) and the
+    five dataset envs: every id of the JAX registry."""
+    from tests.test_torch_babyai_levelgen import SLICE_B_IDS
+    from tests.test_torch_dataset_envs import DATASET_IDS
+
     assert len(OPEN_IDS) == 13 and len(PICKUP_IDS) == 5
     assert len(BABYAI_IDS) == 49 == len(set(BABYAI_IDS))
     assert minigrid_tpu_torch.registered_ids() == sorted(
-        EARLIER_IDS + ZOO_IDS + ROOMGRID_IDS + BABYAI_IDS)
-    assert len(minigrid_tpu_torch.registered_ids()) == 120
+        EARLIER_IDS + ZOO_IDS + ROOMGRID_IDS + BABYAI_IDS + SLICE_B_IDS + DATASET_IDS)
+    assert_registry_complete()
     jax_babyai = {i for i in minigrid_tpu.registered_ids() if i.startswith("BabyAI-")}
-    assert set(BABYAI_IDS) <= jax_babyai
-    for later in ("BabyAI-GoToSeq-v0", "BabyAI-PickupLoc-v0", "BabyAI-BossLevel-v0"):
-        with pytest.raises(KeyError):
-            minigrid_tpu_torch.make(later)
+    assert set(BABYAI_IDS) | set(SLICE_B_IDS) == jax_babyai
 
 
 @pytest.mark.parametrize("env_id", OPEN_IDS + PICKUP_IDS)

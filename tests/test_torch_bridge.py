@@ -29,6 +29,8 @@ from minigrid_tpu_torch.core.state import EnvState, empty_grid
 from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
 CPU = torch.device("cpu")
+# the ids of the JAX registry, every one of which the port registers
+PORT_ID_COUNT = 171
 
 
 # -- bridge helpers (used by the other test_torch_* files) -------------------
@@ -88,6 +90,16 @@ def _assert_fields(got: dict, want: dict, where: str) -> None:
         np.testing.assert_array_equal(g, w, err_msg=f"{where}{name}")
     extra = set(want) - set(got)
     assert not extra, f"{where}: fields the port lacks: {sorted(extra)}"
+
+
+def assert_registry_complete() -> None:
+    """The port registers exactly the JAX registry's ids: PORT_ID_COUNT."""
+    import minigrid_tpu
+    import minigrid_tpu_torch
+
+    ids = minigrid_tpu_torch.registered_ids()
+    assert len(ids) == PORT_ID_COUNT
+    assert set(ids) == set(minigrid_tpu.registered_ids())
 
 
 def random_packed(rng: np.random.Generator, shape) -> np.ndarray:

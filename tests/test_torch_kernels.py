@@ -554,6 +554,38 @@ def test_babyai_on_the_card_gathers_every_step(cuda, env_id):
     _assert_same_fields(runs["cuda"][1], runs["cpu"][1])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id", ["BabyAI-BossLevel-v0", "BabyAI-KeyInBox-v0",
+                                    "BabyAI-PutNextS5N2Carrying-v0",
+                                    "BabyAI-MoveTwoAcrossS8N9-v0", "DirectionsDataset-v0",
+                                    "BlocksDataset-v0", "MiniGrid-Negated-Simple-v0"])
+def test_later_slice_ids_on_the_card_match_the_cpu(cuda, env_id):
+    """The level generator's, PutNext's, Unlock's and the dataset envs' ids
+    at B=64 at their default strategy (BabyAI pooled with the best-effort
+    refill, the dataset envs fused): ``generate`` and 8 steps of the env's
+    own actions on the card, one gather launch per observation (Directions'
+    3x3 grid at V=3 included), and the CPU's run, the verifier state and
+    box planes included."""
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        venv = minigrid_tpu_torch.make_vec(env_id, 64, device=dev)
+        before = obs_gather.LAUNCHES
+        obs, st = venv.reset(rng.PRNGKey(6, dev))
+        steps = [(obs["image"].cpu(), obs["mission"].cpu())]
+        for t in range(8):
+            a = rng.randint(rng.PRNGKey(300 + t, dev), (64,), 0, venv.env.num_actions)
+            obs, st, reward, term, trunc, _ = venv.step(st, a)
+            steps.append((obs["image"].cpu(), obs["mission"].cpu(),
+                          reward.cpu().view(torch.int32), term.cpu(), trunc.cpu()))
+        runs[dev.type] = (steps, state_to_numpy(st), obs_gather.LAUNCHES - before)
+    assert runs["cuda"][2] == 9 and runs["cpu"][2] == 0
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert all(torch.equal(x, y) for x, y in zip(g, c))
+    _assert_same_fields(runs["cuda"][1], runs["cpu"][1])
+
+
 def _assert_same_fields(a: dict, b: dict, where: str = "") -> None:
     assert set(a) == set(b), where
     for k in a:

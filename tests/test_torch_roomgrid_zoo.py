@@ -49,8 +49,11 @@ ROOMGRID_IDS = [i for ids in FAMILIES.values() for i in ids]
 def test_the_roomgrid_families_have_20_ids():
     assert len(ROOMGRID_IDS) == 20 == len(set(ROOMGRID_IDS))
     assert set(ROOMGRID_IDS) <= set(minigrid_tpu_torch.registered_ids())
-    # with the 49 BabyAI ids built on RoomGrid (tests/test_torch_babyai_*)
-    assert len(minigrid_tpu_torch.registered_ids()) == 120
+    # beside the BabyAI ids built on RoomGrid (tests/test_torch_babyai_*) and
+    # the rest: every id of the JAX registry
+    from tests.test_torch_bridge import assert_registry_complete
+
+    assert_registry_complete()
 
 
 @pytest.mark.parametrize("env_id", ROOMGRID_IDS)

@@ -220,17 +220,21 @@ def test_state_bridge_round_trips_a_pooled_state():
 
 def test_registry_and_params():
     from tests.test_torch_babyai_generate_open_pickup import BABYAI_IDS
+    from tests.test_torch_babyai_levelgen import SLICE_B_IDS
+    from tests.test_torch_bridge import assert_registry_complete
+    from tests.test_torch_dataset_envs import DATASET_IDS
     from tests.test_torch_roomgrid_zoo import ROOMGRID_IDS
     from tests.test_torch_zoo_generate import EARLIER_IDS, ZOO_IDS
 
-    assert minigrid_tpu_torch.registered_ids() == sorted(EARLIER_IDS + ZOO_IDS
-                                                         + ROOMGRID_IDS + BABYAI_IDS)
-    assert len(minigrid_tpu_torch.registered_ids()) == 120
+    assert minigrid_tpu_torch.registered_ids() == sorted(
+        EARLIER_IDS + ZOO_IDS + ROOMGRID_IDS + BABYAI_IDS + SLICE_B_IDS + DATASET_IDS)
+    assert_registry_complete()
     env = minigrid_tpu_torch.make("MiniGrid-DoorKey-6x6-v0")
     assert isinstance(env, DoorKeyEnv)
     assert env.default_params == EnvParams(width=6, height=6, max_steps=360)
+    assert minigrid_tpu_torch.make("BabyAI-BossLevel-v0").name == "BossLevel"
     with pytest.raises(KeyError):
-        minigrid_tpu_torch.make("BabyAI-BossLevel-v0")  # the level generator: not yet
+        minigrid_tpu_torch.make("BabyAI-NoSuchLevel-v0")
     venv = minigrid_tpu_torch.make_vec(ENV_ID, 4, reset_strategy="conditional",
                                        device="cpu")
     assert venv.reset_strategy == "conditional"

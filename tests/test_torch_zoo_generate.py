@@ -63,15 +63,20 @@ def port_keys(jkeys) -> torch.Tensor:
 
 def test_the_zoo_has_41_ids():
     """The single-room zoo's 41 ids, beside the earlier families', the
-    RoomGrid families' (``tests/test_torch_roomgrid_zoo.py``) and BabyAI's
-    (``tests/test_torch_babyai_generate_open_pickup.py``): 120 in all."""
+    RoomGrid families' (``tests/test_torch_roomgrid_zoo.py``), BabyAI's
+    (``tests/test_torch_babyai_generate_open_pickup.py``,
+    ``tests/test_torch_babyai_levelgen.py``) and the dataset envs': every id
+    of the JAX registry."""
     from tests.test_torch_babyai_generate_open_pickup import BABYAI_IDS
+    from tests.test_torch_babyai_levelgen import SLICE_B_IDS
+    from tests.test_torch_bridge import assert_registry_complete
+    from tests.test_torch_dataset_envs import DATASET_IDS
     from tests.test_torch_roomgrid_zoo import ROOMGRID_IDS
 
     assert len(ZOO_IDS) == 41 == len(set(ZOO_IDS))
-    assert minigrid_tpu_torch.registered_ids() == sorted(ZOO_IDS + EARLIER_IDS
-                                                         + ROOMGRID_IDS + BABYAI_IDS)
-    assert len(minigrid_tpu_torch.registered_ids()) == 120
+    assert minigrid_tpu_torch.registered_ids() == sorted(
+        ZOO_IDS + EARLIER_IDS + ROOMGRID_IDS + BABYAI_IDS + SLICE_B_IDS + DATASET_IDS)
+    assert_registry_complete()
 
 
 @pytest.mark.parametrize("env_id", ZOO_IDS + EARLIER_IDS)
