@@ -81,7 +81,25 @@ printing a result:
    states with the flipped-bit self-check, card == CPU at B=64 for 8
    steps, env-steps/s (best of 2 x 32 steps); the gather at Directions'
    3x3 with V=3 and at OneRoomS20's 20x20 on the ragged B=4097; BossLevel's
-   launches per step over 2 steps under ``torch.profiler``;
+   launches per step over one step under ``torch.profiler``;
+
+   then (phase 4f) the wrappers and the renderer: DoorKey-8x8 under
+   ``RGBImgPartialObsWrapper`` (tile 8, HWC and channels first) and
+   ``RGBImgObsWrapper``, DoorKey-16x16 under ``ViewSizeWrapper`` at 3 and
+   11, ``ActionBonus`` over DoorKey-8x8 and ``StateBonus`` over MultiRoom-N6
+   (pooled), each through ``VectorEnv`` at B=4096 with the JAX package's
+   strategy, an 8-step walk with the launch counts zeroed before it (two
+   ``obs_gather`` launches an observation where the wrapper gathers a second
+   window, else one; none of ``fused_step``), and card == CPU at B=64 for 8
+   steps of 4-step episodes (observations, reward bits within 2 ulp, flags,
+   the final state with its count tables); the other ten wrappers card ==
+   CPU the same way (``ReseedWrapper`` through four resets); the POV render
+   (both layouts) and the full render (highlight on and off) bitwise card
+   against CPU on a ragged B=4097 with the flipped-pixel self-check,
+   ``get_frame`` at 32 pixels; env-steps/s of the RGB walks beside the
+   symbolic one, the atlas gather's time against its bound,
+   ``tools/benchmark`` on LavaGapS7 and a ``tools/battery`` row with
+   ``obs=rgb_chw``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
@@ -211,12 +229,50 @@ SLICE_B_CPU_STEPS = 8
 SLICE_B_TIMED_STEPS = 32  # best of 2
 SLICE_B_PROFILED = "BabyAI-BossLevel-v0"
 # a traced step of BossLevel is 54,451 launches; the summary of the trace
-# takes about 30 s a step on the card's host
-SLICE_B_PROFILE_STEPS = 2
+# takes about 30 s a step on the card's host (2 steps before phase 4f)
+SLICE_B_PROFILE_STEPS = 1
 DIRECTIONS = "DirectionsDataset-v0"  # 3x3, V=3: the smallest grid and view
 ONE_ROOM_20 = "BabyAI-OneRoomS20-v0"
 # the ids whose rewards go below 0
 NEGATIVE_REWARDS = ("Dynamic-Obstacles", "ContrastiveTrajectory", "Negated")
+
+# phase 4f: the wrappers and the renderer.  Each walk at B=4096: (name, id,
+# wrapper, its kwargs, the strategy and window the JAX package picks, the
+# obs_gather launches one observation makes: two where the wrapper gathers a
+# second window, for the POV, the highlight or another view size)
+DOORKEY_16 = "MiniGrid-DoorKey-16x16-v0"
+FETCH = "MiniGrid-Fetch-8x8-N3-v0"  # a mission table of many codes
+WRAPPED = (
+    ("RGB partial HWC", ENV_ID, "RGBImgPartialObsWrapper", {}, "fused", 256, 2),
+    ("RGB partial CHW", ENV_ID, "RGBImgPartialObsWrapper", {"channels_first": True},
+     "fused", 256, 2),
+    ("RGB full", ENV_ID, "RGBImgObsWrapper", {}, "fused", 256, 2),
+    ("view 3", DOORKEY_16, "ViewSizeWrapper", {"agent_view_size": 3}, "fused", 256, 2),
+    ("view 11", DOORKEY_16, "ViewSizeWrapper", {"agent_view_size": 11}, "fused", 256, 2),
+    ("ActionBonus", ENV_ID, "ActionBonus", {}, "fused", 256, 1),
+    ("StateBonus", MULTIROOM, "StateBonus", {}, "pooled", 32, 1),
+)
+# the other wrappers, card == CPU only (ReseedWrapper through its reset)
+OTHER_WRAPPED = (
+    ("ImgObsWrapper", ENV_ID, {}),
+    ("OneHotPartialObsWrapper", ENV_ID, {}),
+    ("FullyObsWrapper", ENV_ID, {}),
+    ("SymbolicObsWrapper", ENV_ID, {}),
+    ("DirectionObsWrapper", ENV_ID, {}),
+    ("DirectionObsWrapper", ENV_ID, {"type": "angle"}),
+    ("DictObservationSpaceWrapper", FETCH, {}),
+    ("FlatObsWrapper", FETCH, {}),
+    ("EasyModeWrapper", ENV_ID, {}),
+    ("NoLanguageWrapper", ENV_ID, {}),
+)
+WRAPPED_STEPS = 8
+WRAPPED_CPU_ENVS = 64
+WRAPPED_CPU_EPISODE = 4  # max_steps of the card == CPU runs: two waves of resets
+WRAPPED_TIMED_STEPS = 32  # best of 2
+# float leaves whose card and CPU values may differ in the last bits: the
+# bonus 1/sqrt(n) and arctan (both are reported)
+FLOAT_ULP = 2
+TILE = 8  # RGBImg*Wrapper's default
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -682,8 +738,8 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
     grammar = getattr(env, "grammar_missions", False)
     codes = torch.from_numpy(env.mission_codes()).to(dev)
     ends = torch.zeros((), dtype=torch.int64, device=dev)
-    r_lo = torch.zeros((), device=dev)
-    r_hi = torch.zeros((), device=dev)
+    r_lo = torch.full((), float("inf"), device=dev)
+    r_hi = torch.full((), -float("inf"), device=dev)
     torch.cuda.synchronize()
     for module in counters.values():
         module.LAUNCHES = 0
@@ -1179,6 +1235,317 @@ def drive_slice_b(dev, counters: dict, obs_gather, card: str) -> dict:
     return out
 
 
+# -- phase 4f: the wrappers and the renderer ---------------------------------------
+
+def make_wrapped(env_id: str, wrapper: str, kwargs: dict, **overrides):
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch import wrappers
+
+    return getattr(wrappers, wrapper)(minigrid_tpu_torch.make(env_id, **overrides),
+                                      **kwargs)
+
+
+def obs_leaves(obs) -> list:
+    """(name, tensor) of every leaf of an observation, a tensor or a dict."""
+    if isinstance(obs, dict):
+        return [(f"{k}.{n}" if n else k, t) for k in sorted(obs)
+                for n, t in obs_leaves(obs[k])]
+    return [("", obs)]
+
+
+def ulp_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float32 ulps of two tensors (nan == nan;
+    a nan against a number counts as 2^31)."""
+    if a.dtype != torch.float32:
+        return 0 if not mismatches(a, b) else 2 ** 31
+    ai, bi = a.view(torch.int32).long(), b.view(torch.int32).long()
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if bool((nan_a != nan_b).any()):
+        return 2 ** 31
+    d = torch.where(nan_a, 0, (ai - bi).abs())
+    return int(d.max()) if d.numel() else 0
+
+
+def wrapped_walk(dev, counters: dict, venv, seed: int, gathers: int) -> dict:
+    """WRAPPED_STEPS steps of predrawn actions with the launch counts zeroed
+    just before the reset; obs_gather must launch ``gathers`` times an
+    observation and fused_step never."""
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import bench
+
+    actions = bench.draw_actions(rng.PRNGKey(seed, dev), WRAPPED_STEPS, venv.num_envs,
+                                 venv.env.num_actions)
+    ends = torch.zeros((), dtype=torch.int64, device=dev)
+    r_lo = torch.full((), float("inf"), device=dev)
+    r_hi = torch.full((), -float("inf"), device=dev)
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.LAUNCHES = 0
+    t0 = time.perf_counter()
+    obs, state = venv.reset(rng.PRNGKey(seed + 1, dev))
+    for a in actions:
+        obs, state, reward, term, trunc, _ = venv.step(state, a)
+        ends += (term | trunc).sum()
+        r_lo = torch.minimum(r_lo, reward.min())
+        r_hi = torch.maximum(r_hi, reward.max())
+    ends, r_lo, r_hi = int(ends), float(r_lo), float(r_hi)
+    seconds = time.perf_counter() - t0
+    launches = {name: module.LAUNCHES for name, module in counters.items()}
+    want = {"obs_gather": (WRAPPED_STEPS + 1) * gathers, "fused_step": 0}
+    if launches != want:
+        raise AssertionError(f"{type(venv.env).__name__}: launches {launches}, "
+                             f"expected {want}")
+    return {"obs": obs, "state": state, "ends": ends, "reward": (r_lo, r_hi),
+            "seconds": seconds, "launches": launches}
+
+
+def wrapped_card_matches_cpu(dev, make, seed: int) -> tuple[int, int]:
+    """``make()`` on the card and on the CPU, B=WRAPPED_CPU_ENVS for
+    WRAPPED_STEPS steps (episodes of WRAPPED_CPU_EPISODE): every observation leaf, end flag and the final state
+    (a bonus wrapper's counts, a pooled ring) bitwise; the rewards and float
+    observation leaves within FLOAT_ULP.  Returns (episode ends, the largest
+    ulp distance seen)."""
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.parallel.vector import VectorEnv
+    from minigrid_tpu_torch.tools import bench
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    env = make()
+    actions = bench.draw_actions(rng.PRNGKey(seed, "cpu"), WRAPPED_STEPS,
+                                 WRAPPED_CPU_ENVS, env.num_actions)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        venv = VectorEnv(env, WRAPPED_CPU_ENVS, device=d)
+        obs, state = venv.reset(rng.PRNGKey(seed, d))
+        steps = [[t.cpu() for _, t in obs_leaves(obs)]]
+        for a in actions:
+            obs, state, r, te, tr, _ = venv.step(state, a.to(d))
+            steps.append([t.cpu() for _, t in obs_leaves(obs)]
+                         + [r.cpu(), te.cpu(), tr.cpu()])
+        runs.append((steps, state_to_numpy(state)))
+    (g_steps, g_state), (c_steps, c_state) = runs
+    name = type(env).__name__
+    worst, ends = 0, 0
+    for t, (g, c) in enumerate(zip(g_steps, c_steps)):
+        for a, b in zip(g, c):
+            if a.dtype == torch.float32:
+                d = ulp_apart(a, b)
+                if d > FLOAT_ULP:
+                    raise AssertionError(f"{name} step {t}: {d} ulp card vs CPU")
+                worst = max(worst, d)
+            elif mismatches(a, b):
+                raise AssertionError(f"{name} step {t}: a leaf differs card vs CPU")
+        if t:
+            ends += int((c[-2] | c[-1]).sum())
+    same_fields(g_state, c_state, f"{name} B={WRAPPED_CPU_ENVS} final state ")
+    return ends, worst
+
+
+def check_renders(dev) -> None:
+    """The renders on the card against the CPU on a ragged batch of walked
+    DoorKey-8x8 states, each with the flipped-pixel self-check; get_frame at
+    32 pixels."""
+    from minigrid_tpu_torch.core.state import map_fields
+    from minigrid_tpu_torch.ops import render as R
+
+    env, params, st = doorkey_walk_states(dev, RAGGED_ENVS, steps=24, seed=33)
+    cpu = map_fields(lambda x: x.cpu(), st)
+    renders = {
+        "pov_render_batch HWC": lambda s, a: R.pov_render_batch(s, params, a),
+        "pov_render_batch CHW": lambda s, a: R.pov_render_batch(s, params, a,
+                                                                channels_first=True),
+        "full_render highlight": lambda s, a: R.full_render(s, params, a, True),
+        "full_render plain": lambda s, a: R.full_render(s, params, a, False),
+    }
+    for name, fn in renders.items():
+        got = fn(st, R.get_atlas(TILE, dev)).cpu()
+        want = fn(cpu, R.get_atlas(TILE, "cpu"))
+        if mismatches(got, want):
+            raise AssertionError(f"{name} B={RAGGED_ENVS}: card != CPU")
+        check_flipped_bit(got, want, f"the frames of {name}")
+        log(f"  {name} B={RAGGED_ENVS} {tuple(got.shape)}: card == CPU bitwise, "
+            f"flipped-pixel self-check caught")
+    t0 = time.perf_counter()
+    head_d = map_fields(lambda x: x[:16], st)
+    head_c = map_fields(lambda x: x[:16], cpu)
+    for pov in (False, True):
+        got = env.get_frame(head_d, params, tile_size=32, agent_pov=pov).cpu()
+        want = env.get_frame(head_c, params, tile_size=32, agent_pov=pov)
+        if mismatches(got, want) or got.shape[1] != 32 * (7 if pov else 8):
+            raise AssertionError(f"get_frame(tile_size=32, agent_pov={pov}) card != CPU")
+    log(f"  get_frame tile 32, B=16, whole grid and POV: card == CPU bitwise "
+        f"({time.perf_counter() - t0:.1f} s with the 32-pixel atlas)")
+
+
+def atlas_gather_bound_ms(flat: torch.Tensor, tile: int) -> tuple[float, dict]:
+    """Least time of the atlas gather: the frames written once and the
+    indices read once at 4 bytes each (int32 holds every one of the
+    NUM_VARIANTS * NUM_CODES rows), over HBM bandwidth (no arithmetic to
+    speak of).  The atlas itself (``atlas_bytes``, reported) is left out:
+    it fits in L2 and stays there across calls."""
+    from minigrid_tpu_torch.ops import render as R
+
+    out = flat.numel() * tile * tile * 3
+    atlas = R.NUM_VARIANTS * R.NUM_CODES * tile * tile * 3
+    nbytes = out + flat.numel() * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, {"bytes": nbytes, "frame_bytes": out,
+                                            "atlas_bytes": atlas}
+
+
+def drive_wrappers(dev, counters: dict, card: str) -> dict:
+    """Phase 4f: each WRAPPED walk at B=4096 (the JAX strategy, launch
+    counts) and card == CPU at B=64; the OTHER_WRAPPED and ReseedWrapper
+    card == CPU; the renders bitwise on a ragged batch; then the RGB walks'
+    rates beside the symbolic one, the atlas gather against its bound,
+    tools/benchmark and a tools/battery row.  Returns what PERF.md reads."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.core.state import map_fields
+    from minigrid_tpu_torch.ops import render as R
+    from minigrid_tpu_torch.parallel.vector import VectorEnv
+    from minigrid_tpu_torch.tools import battery, bench, benchmark
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    out = {"seconds": {}, "ulp": {}, "rates": {}}
+    walks = {}
+    for i, (name, env_id, wrapper, kwargs, strategy, refill, gathers) in enumerate(WRAPPED):
+        t0 = time.perf_counter()
+        venv = VectorEnv(make_wrapped(env_id, wrapper, kwargs), NUM_ENVS, device=dev)
+        if (venv.reset_strategy, venv.pool_refill) != (strategy, refill):
+            raise AssertionError(f"{name}: strategy {venv.reset_strategy}/"
+                                 f"{venv.pool_refill}, the JAX package picks "
+                                 f"{strategy}/{refill}")
+        walk = wrapped_walk(dev, counters, venv, seed=1100 + i, gathers=gathers)
+        walks[name] = walk
+        leaves = obs_leaves(walk["obs"])
+        image = walk["obs"]["image"]
+        p = venv.params
+        v = kwargs.get("agent_view_size", p.agent_view_size)
+        shape = {"RGB partial HWC": (NUM_ENVS, 7 * TILE, 7 * TILE, 3),
+                 "RGB partial CHW": (NUM_ENVS, 3, 7 * TILE, 7 * TILE),
+                 "RGB full": (NUM_ENVS, p.height * TILE, p.width * TILE, 3)}.get(
+                     name, (NUM_ENVS, v, v, 3))
+        if tuple(image.shape) != shape or image.dtype != torch.uint8:
+            raise AssertionError(f"{name}: image {tuple(image.shape)} {image.dtype}")
+        if not image.is_contiguous():
+            raise AssertionError(f"{name}: the frames are not contiguous")
+        if "Bonus" in name:
+            counts = walk["state"].envs.counts if hasattr(walk["state"], "envs") \
+                else walk["state"].counts
+            inner = walk["state"].envs.inner if hasattr(walk["state"], "envs") \
+                else walk["state"].inner
+            # one count a step since each env's own reset
+            if not torch.equal(counts.flatten(1).sum(1).int(), inner.step_count):
+                raise AssertionError(f"{name}: counts do not sum to the step count")
+            if not (0 < walk["reward"][0] and walk["reward"][1] <= 2.0):
+                raise AssertionError(f"{name}: bonus rewards {walk['reward']}")
+        elif "RGB" not in name and not bool((image[..., 0] <= 33).all()):
+            raise AssertionError(f"{name}: image types out of range")
+        ends64, ulp = wrapped_card_matches_cpu(
+            dev, lambda: make_wrapped(env_id, wrapper, kwargs,
+                                      max_steps=WRAPPED_CPU_EPISODE), seed=1200 + i)
+        out["ulp"][name] = ulp
+        out["seconds"][name] = time.perf_counter() - t0
+        log(f"  {name} ({wrapper} over {env_id}): {venv.reset_strategy}/"
+            f"{venv.pool_refill} as the JAX package picks; {WRAPPED_STEPS} steps at "
+            f"B={NUM_ENVS}: {walk['ends']} ends, launches {walk['launches']} "
+            f"({gathers} gather(s) an observation), leaves "
+            f"{[(n, tuple(t.shape)) for n, t in leaves]}, rewards in "
+            f"[{walk['reward'][0]}, {walk['reward'][1]}]; B={WRAPPED_CPU_ENVS} card == "
+            f"CPU ({ends64} ends; floats {ulp} ulp apart); {out['seconds'][name]:.1f} s")
+    # the gather at the wrapper's view sizes, on the 16x16 walks' states
+    obs_gather = counters["obs_gather"]
+    out["gather"] = {}
+    for name, v in (("view 3", 3), ("view 11", 11)):
+        st = walks[name]["state"]
+        inputs = {"grid": st.grid, "pos": st.agent_pos, "dir": st.agent_dir, "view": v}
+        check_zoo_gather(obs_gather, st, v, f"{DOORKEY_16} V={v}", True)
+        times = time_gather(obs_gather, inputs)
+        bound, by, work = gather_bound_ms(inputs)
+        out["gather"][v] = {**times, "bound_ms": bound, "bound_by": by}
+        log(f"  obs_gather B={NUM_ENVS} 16x16 V={v} ({DOORKEY_16} states): kernel "
+            f"{times['ms'] * 1e3:.2f} us, plain {times['plain_ms'] * 1e3:.2f} us, "
+            f"torch.gather {times['library_ms'] * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+            f"({by}; {work}), {bound / times['ms']:.3f} of the bound; bitwise, "
+            f"flipped-bit self-check caught [{card}]")
+
+    t0 = time.perf_counter()
+    for i, (wrapper, env_id, kwargs) in enumerate(OTHER_WRAPPED):
+        ends64, ulp = wrapped_card_matches_cpu(
+            dev, lambda: make_wrapped(env_id, wrapper, kwargs,
+                                      max_steps=WRAPPED_CPU_EPISODE), seed=1300 + i)
+        label = wrapper + (f"({kwargs})" if kwargs else "")
+        out["ulp"][label] = ulp
+        log(f"  {label} over {env_id}: B={WRAPPED_CPU_ENVS} card == CPU, "
+            f"{WRAPPED_STEPS} steps ({ends64} ends; floats {ulp} ulp apart)")
+    # ReseedWrapper: its resets on both devices cycle the same seeds
+    from minigrid_tpu_torch.wrappers import ReseedWrapper
+
+    devices = (dev, torch.device("cpu"))
+    wrapped = [ReseedWrapper(minigrid_tpu_torch.make(ENV_ID), seeds=[5, 6, 7])
+               for _ in devices]
+    for k in range(4):
+        (g_obs, g_st), (c_obs, c_st) = (w.reset(device=d) for w, d in zip(wrapped, devices))
+        same_fields(state_to_numpy(g_st), state_to_numpy(c_st), f"ReseedWrapper reset {k} ")
+        if any(mismatches(a.cpu(), b) for (_, a), (_, b) in
+               zip(obs_leaves(g_obs), obs_leaves(c_obs))):
+            raise AssertionError(f"ReseedWrapper reset {k}: obs differs card vs CPU")
+    log("  ReseedWrapper: 4 resets cycling 3 seeds, card == CPU")
+    out["seconds"]["other wrappers"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    check_renders(dev)
+    out["seconds"]["renders"] = time.perf_counter() - t0
+
+    # -- timings --
+    t0 = time.perf_counter()
+    for label, venv in (
+            ("symbolic", minigrid_tpu_torch.make_vec(ENV_ID, NUM_ENVS, device=dev)),
+            ("RGB partial HWC", VectorEnv(make_wrapped(ENV_ID, "RGBImgPartialObsWrapper",
+                                                       {}), NUM_ENVS, device=dev)),
+            ("RGB partial CHW", VectorEnv(make_wrapped(
+                ENV_ID, "RGBImgPartialObsWrapper", {"channels_first": True}),
+                NUM_ENVS, device=dev))):
+        rate = bench.measure_steps(venv, WRAPPED_TIMED_STEPS)
+        out["rates"][label] = rate
+        log(f"  {ENV_ID} B={NUM_ENVS} {label} obs: {rate['env_steps_per_sec']:.0f} "
+            f"env-steps/s, {rate['us_per_step']:.1f} us/step ({rate['strategy']}, "
+            f"predrawn, best of 2 x {WRAPPED_TIMED_STEPS} steps) [{card}]")
+
+    params = minigrid_tpu_torch.make(ENV_ID).default_params
+    flat = R.pov_indices(walks["RGB partial HWC"]["state"], params)
+    atlas = R.get_atlas(TILE, dev)
+    rows = atlas.reshape(R.NUM_VARIANTS * R.NUM_CODES, -1)
+    bound_ms, work = atlas_gather_bound_ms(flat, TILE)
+    out["atlas_gather"] = {"bound_ms": bound_ms, **work}
+    index_ms = gpu_time_ms(lambda: rows.index_select(0, flat.reshape(-1)))
+    out["atlas_gather"]["index_select_ms"] = index_ms
+    for cf in (False, True):
+        ms = gpu_time_ms(lambda: R.tile_frames(atlas, flat, cf))
+        out["atlas_gather"]["chw_ms" if cf else "hwc_ms"] = ms
+        log(f"  atlas gather B={NUM_ENVS} V={VIEW} T={TILE} "
+            f"{'CHW' if cf else 'HWC'} (index_select + layout copy): {ms * 1e3:.2f} us, "
+            f"bound {bound_ms * 1e3:.3f} us (bytes; {work}), "
+            f"{bound_ms / ms:.3f} of the bound [{card}]")
+    log(f"  atlas row gather alone (index_select): {index_ms * 1e3:.2f} us [{card}]")
+
+    bm = benchmark.benchmark("MiniGrid-LavaGapS7-v0", num_resets=20, num_frames=200,
+                             tile_size=32, num_envs=NUM_ENVS, vector_steps=32, device=dev)
+    out["benchmark"] = bm
+    log(f"  tools/benchmark MiniGrid-LavaGapS7-v0 (20 resets, 200 frames at tile 32, "
+        f"B={NUM_ENVS} x 32 steps): reset {bm['reset_ms']:.3f} ms, full render "
+        f"{bm['render_fps']:.0f} FPS, RGB partial step {bm['rgb_partial_step_fps']:.0f} "
+        f"FPS, {bm['vector_env_steps_per_sec']:.0f} env-steps/s [{card}]")
+    if not battery.device_kernel_gate(device=dev):
+        raise AssertionError("tools/battery's gate did not run on the card")
+    row = battery.run_spec(f"{ENV_ID}:obs=rgb_chw,steps=64,device={dev}")
+    out["battery"] = row
+    log(f"  tools/battery {ENV_ID} obs=rgb_chw: {row['steps_per_sec']} env-steps/s, "
+        f"gather {row['gather_impl']} [{card}]")
+    out["seconds"]["timings"] = time.perf_counter() - t0
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -1329,6 +1696,11 @@ def main() -> int:
     slice_b = drive_slice_b(dev, counters, obs_gather, card)
     err = max(err, slice_b["max_abs_err"])
     log(f"  the slice B phase took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4f: the wrappers and the renderer")
+    t0 = time.perf_counter()
+    drive_wrappers(dev, counters, card)
+    log(f"  the wrappers phase took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)

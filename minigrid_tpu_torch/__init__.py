@@ -7,8 +7,13 @@ families, every BabyAI level (on ``BabyAILevel`` or its grammar sampler
 ``LevelGen``) with the verifier, the five dataset envs (every id of the JAX
 registry), the vectorized auto-reset engine with its three reset strategies and ``rollout``,
 and ``FusedVectorEnv``, whose whole step (auto-reset and observation
-included) is one hand-written CUDA kernel.  Entry points run on CUDA unless the caller
-passes ``device="cpu"``.
+included) is one hand-written CUDA kernel.  Beside them: the 15 observation
+and reward wrappers of ``minigrid_tpu_torch.wrappers`` (the exploration
+bonuses' count tables ride in the engine's state), the RGB renderer of
+``minigrid_tpu_torch.ops.render`` (a texture atlas built once on the host,
+full and POV frames as one row gather, ``Env.get_frame``), and the timing
+tools ``tools/bench.py``, ``tools/benchmark.py`` and ``tools/battery.py``.
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
     import minigrid_tpu_torch as mgt
     from minigrid_tpu_torch.core import rng
@@ -19,6 +24,11 @@ passes ``device="cpu"``.
     fused = mgt.FusedVectorEnv(mgt.make("MiniGrid-DoorKey-8x8-v0"), 4096)
     obs, fs = fused.reset(rng.PRNGKey(0))
     obs, fs, reward, terminated, truncated, info = fused.step(fs, actions)
+
+    from minigrid_tpu_torch.wrappers import RGBImgPartialObsWrapper
+
+    pixels = mgt.VectorEnv(RGBImgPartialObsWrapper(mgt.make("MiniGrid-DoorKey-8x8-v0"),
+                                                   channels_first=True), 4096)
 """
 
 from __future__ import annotations

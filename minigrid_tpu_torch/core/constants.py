@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
+# Pixels per grid cell of a rendered frame (the reference's default).
+TILE_PIXELS = 32
+
 # Color name -> RGB, the reference palette.
 COLORS = {
     "red": np.array([255, 0, 0], dtype=np.uint8),

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.core import rng
+from minigrid_tpu_torch.core.constants import TILE_PIXELS
 from minigrid_tpu_torch.core.obs import gen_obs_batch
 from minigrid_tpu_torch.core.state import EnvParams, EnvState
 from minigrid_tpu_torch.core.step import (
@@ -136,6 +137,16 @@ class Env:
         """Every mission code this env can emit, int32[M, 4]; by default the
         single zero code of a fixed-mission env."""
         return np.zeros((1, 4), dtype=np.int32)
+
+    # -- rendering ---------------------------------------------------------
+    def get_frame(self, states: EnvState, params: EnvParams, highlight: bool = True,
+                  tile_size: int = TILE_PIXELS, agent_pov: bool = False) -> torch.Tensor:
+        """RGB frame of every env's whole grid, uint8[B, H*T, W*T, 3], or of
+        its POV (MiniGridEnv.get_frame, minigrid_env.py:717-740)."""
+        from minigrid_tpu_torch.ops.render import get_frame
+
+        return get_frame(states, params, highlight=highlight, tile_size=tile_size,
+                         agent_pov=agent_pov)
 
     # -- convenience -------------------------------------------------------
     def split_rng(self, state: EnvState) -> tuple[EnvState, torch.Tensor]:

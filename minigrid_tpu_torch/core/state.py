@@ -12,8 +12,10 @@ logic.
 
 ``extra`` holds what a family keeps beside the grid (door positions, targets,
 obstacles): ``None``, a tensor, or a dict of tensors (dicts may nest), every
-tensor with the leading dim B.  :func:`map_fields` walks into it, so the batch
-engine's selects and ring copies carry it like any other field.
+tensor with the leading dim B.  :func:`map_fields` walks into it, and into a
+dataclass nested in a state (a wrapper's state around an ``EnvState``), so
+the batch engine's selects and ring copies carry either like any other
+field.
 """
 
 from __future__ import annotations
@@ -78,19 +80,27 @@ class EnvParams:
 
 def map_tree(fn: Callable, *trees):
     """Apply ``fn`` leaf by leaf across trees of one structure: ``None``,
-    a tensor, or a dict of trees."""
+    a tensor, a dict of trees, or a dataclass whose fields are trees (a
+    wrapper's state holding an ``EnvState``, as ``BonusState`` does)."""
     first = trees[0]
     if first is None:
         return None
     if isinstance(first, dict):
         return {k: map_tree(fn, *(t[k] for t in trees)) for k in first}
+    if dataclasses.is_dataclass(first):
+        return map_fields(fn, *trees)
     return fn(*trees)
 
 
 def map_fields(fn: Callable, *states):
     """Apply ``fn`` field by field across dataclass states of one type,
-    skipping fields that are ``None`` and walking into dict fields."""
+    skipping fields that are ``None`` and walking into dict fields and
+    nested dataclasses.  States of different types raise ``TypeError``."""
     first = states[0]
+    for s in states[1:]:
+        if type(s) is not type(first):
+            raise TypeError(f"states of different types: {type(first).__name__} "
+                            f"and {type(s).__name__}")
     out = {}
     for f in dataclasses.fields(first):
         out[f.name] = map_tree(fn, *(getattr(s, f.name) for s in states))

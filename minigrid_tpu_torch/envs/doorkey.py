@@ -79,3 +79,6 @@ class DoorKeyEnv(Env):
         grid = G.set_where(grid, key_mask, (_KEY, _YELLOW, 0))
         return base_state(grid, agent_pos, agent_dir.contiguous(),
                           rng=k_state.contiguous(), has_boxes=False)
+
+    def mission_text(self, mission) -> str:
+        return "use the key to open the door and then get to the goal"

@@ -60,3 +60,6 @@ class EmptyEnv(Env):
             direction = rng.randint(k_dir, (), 0, 4)
         return base_state(grid, pos, direction, rng=k_state.contiguous(),
                           has_boxes=False)
+
+    def mission_text(self, mission) -> str:
+        return "get to the green goal square"

@@ -24,6 +24,15 @@ chooses them unless the caller names one:
   with ONE unvalidated draw a slot: where the draw is invalid the slot keeps
   its previous level, and is marked fresh all the same.
 
+A wrapper's state (``wrappers.BonusState``: an ``EnvState`` and a count
+table) rides through every strategy: selects and ring copies walk into the
+nested dataclass, and regeneration reads the ``rng`` it passes through.  One
+case fails, as it does in the JAX package: a bonus wrapper over a family with
+``generate_attempt`` on the best-effort pooled refill, where the wrapper
+delegates ``generate_attempt`` to the family, whose bare ``EnvState`` cannot
+fill a ring of ``BonusState``.  The first refill raises ``ValueError``;
+``strict_refill=True`` and ``reset_strategy="conditional"`` run.
+
 ``final_obs=True`` adds the observation of the state each step ended in,
 before the auto-reset, as ``info["final_obs"]``.  :func:`rollout` drives B
 envs for T steps and returns the stacked trajectory.
@@ -287,6 +296,15 @@ class VectorEnv:
         if self.best_effort_refill:
             cand, ok = self.env.generate_attempt(rng.split(k, n), self.params,
                                                  self.device)
+            if type(cand) is not type(pool):
+                # as in the JAX package, whose refill fails to trace here
+                raise ValueError(
+                    f"{type(self.env).__name__}.generate_attempt returns "
+                    f"{type(cand).__name__} levels but the ring holds "
+                    f"{type(pool).__name__}: a wrapper that extends the state "
+                    "(ActionBonus, StateBonus) hands the best-effort refill the "
+                    "wrapped family's generate_attempt; use strict_refill=True "
+                    "or reset_strategy='conditional'")
             cand = tree_select(ok, cand, map_fields(lambda p: p.index_select(0, idx),
                                                     pool))
         else:

@@ -92,11 +92,12 @@ def draw_actions(key: torch.Tensor, num_steps: int, num_envs: int,
     return rng.randint(key, (num_steps, num_envs), 0, num_actions)
 
 
-def fold(acc: torch.Tensor, obs: dict, reward: torch.Tensor, term: torch.Tensor,
+def fold(acc: torch.Tensor, obs, reward: torch.Tensor, term: torch.Tensor,
          trunc: torch.Tensor) -> torch.Tensor:
-    """One step into the running checksum: the whole observation, the
-    rewards and the episode ends."""
-    chk = sum(leaf.to(torch.float32).sum() for leaf in obs.values())
+    """One step into the running checksum: the whole observation (a tensor,
+    or a dict of them), the rewards and the episode ends."""
+    leaves = obs.values() if isinstance(obs, dict) else (obs,)
+    chk = sum(leaf.to(torch.float32).sum() for leaf in leaves)
     return acc + (reward.sum() + chk + (term | trunc).sum().to(torch.float32))
 
 
@@ -120,13 +121,8 @@ def loop(venv: VectorEnv, state: PooledState, key: torch.Tensor, num_steps: int,
     ``actions`` int32[T, B] when given."""
     if num_steps % refill_period:
         raise ValueError("num_steps must be a multiple of refill_period")
-    keys = rng.split(key, num_steps)
     acc = torch.zeros((), dtype=torch.float32, device=venv.device)
-    for t in range(num_steps):
-        if actions is None:
-            action = rng.randint(keys[t], (venv.num_envs,), 0, venv.env.num_actions)
-        else:
-            action = actions[t]
+    for t, action in enumerate(_action_rows(venv, key, num_steps, actions)):
         obs, state, reward, term, trunc, _ = venv.step_nofill(state, action)
         acc = fold(acc, obs, reward, term, trunc)
         if on_step is not None:
@@ -157,18 +153,31 @@ def loop_fused(fvenv: FusedVectorEnv, fs: dict, actions: torch.Tensor,
     return acc, fs
 
 
-def loop_steps(venv: VectorEnv, state, actions: torch.Tensor,
-               on_step=None) -> tuple[torch.Tensor, object]:
+def loop_steps(venv: VectorEnv, state, actions: torch.Tensor | None = None,
+               on_step=None, key: torch.Tensor | None = None,
+               num_steps: int | None = None) -> tuple[torch.Tensor, object]:
     """One ``venv.step`` (any reset strategy) per row of ``actions``
-    int32[T, B], folding the checksum of :func:`loop`.  Returns (checksum,
-    final state)."""
+    int32[T, B], or without ``actions`` ``num_steps`` steps with actions
+    drawn from ``key`` as :func:`loop` draws them, folding the checksum of
+    :func:`loop`.  Returns (checksum, final state)."""
     acc = torch.zeros((), dtype=torch.float32, device=venv.device)
-    for action in actions:
+    for action in _action_rows(venv, key, num_steps, actions):
         obs, state, reward, term, trunc, _ = venv.step(state, action)
         acc = fold(acc, obs, reward, term, trunc)
         if on_step is not None:
             on_step(obs, reward, term, trunc)
     return acc, state
+
+
+def _action_rows(venv: VectorEnv, key: torch.Tensor | None, num_steps: int | None,
+                 actions: torch.Tensor | None):
+    """Each step's actions int32[B]: the rows of ``actions`` when given,
+    else one ``randint`` a step from ``split(key, num_steps)``."""
+    if actions is not None:
+        yield from actions
+        return
+    for k in rng.split(key, num_steps):
+        yield rng.randint(k, (venv.num_envs,), 0, venv.env.num_actions)
 
 
 def ring_stats(venv: VectorEnv, state) -> dict:

@@ -5,12 +5,14 @@ names of ``EnvState`` (or of ``PooledState``, with ``envs``/``pool`` as nested
 dicts) and returns the port's state on a device; ``state_to_numpy`` goes the
 other way, in the JAX package's dtypes (packed grids and PRNG keys as
 uint32).  The port never sees a JAX object: the caller turns a JAX pytree
-into such a dict.  An ``EnvState``'s ``extra`` is ``None``, an array or a
-dict of arrays (dicts may nest; a JAX dataclass there, such as BabyAI's
-instruction code and verifier state, crosses as a dict keyed by its field
-names).  Each leaf keeps its type: bool stays bool, uint32 (BabyAI's packed
-verifier planes) is int64 in the port and uint32 again on the way back, and
-every other integer leaf is int32.
+into such a dict.  A bonus wrapper's state (``wrappers.BonusState``) crosses
+as ``inner`` (the ``EnvState``'s fields) and ``counts`` (int32).  An
+``EnvState``'s ``extra`` is ``None``, an array or a dict of arrays (dicts may
+nest; a JAX dataclass there, such as BabyAI's instruction code and verifier
+state, crosses as a dict keyed by its field names).  Each leaf keeps its
+type: bool stays bool, uint32 (BabyAI's packed verifier planes) is int64 in
+the port and uint32 again on the way back, and every other integer leaf is
+int32.
 
 ``fused_state_from_numpy``/``fused_state_to_numpy`` carry the plane dict of
 ``FusedVectorEnv`` across: the JAX package keeps its grid as ``[N, LANES]``
@@ -89,9 +91,17 @@ def _extra_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def state_from_numpy(fields: dict, device=None):
-    """numpy fields -> ``EnvState``, or ``PooledState`` when ``fields`` has
-    ``envs``/``pool``.  Absent box planes and ``extra`` are ``None``."""
+    """numpy fields -> ``EnvState``; ``PooledState`` when ``fields`` has
+    ``envs``/``pool``; a bonus wrapper's ``BonusState`` when it has
+    ``inner``/``counts``.  Absent box planes and ``extra`` are ``None``."""
     dev = resolve_device(device)
+    if "inner" in fields:
+        from minigrid_tpu_torch.wrappers import BonusState
+
+        if set(fields) != {"inner", "counts"}:
+            raise ValueError(f"a BonusState has inner and counts, got {sorted(fields)}")
+        return BonusState(inner=state_from_numpy(fields["inner"], dev),
+                          counts=_to_tensor("counts", fields["counts"], torch.int32, dev))
     if "envs" in fields:
         rest = {k: v for k, v in fields.items() if k not in ("envs", "pool")}
         return PooledState(envs=state_from_numpy(fields["envs"], dev),
@@ -103,12 +113,12 @@ def state_from_numpy(fields: dict, device=None):
 
 
 def state_to_numpy(state) -> dict:
-    """``EnvState``/``PooledState`` -> numpy fields in the JAX package's
-    dtypes."""
+    """``EnvState``/``PooledState``/``BonusState`` -> numpy fields in the
+    JAX package's dtypes."""
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
-        if isinstance(v, EnvState):
+        if dataclasses.is_dataclass(v):
             out[f.name] = state_to_numpy(v)
         elif f.name == "extra":
             out[f.name] = map_tree(_extra_to_numpy, v)

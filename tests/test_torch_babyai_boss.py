@@ -12,6 +12,7 @@ import pytest
 
 from tests.test_torch_babyai_generate_goto import check_generate
 from tests.test_torch_babyai_levelgen import LEVELGEN_IDS
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 BOSS_IDS = [i for i in LEVELGEN_IDS if "Boss" in i]
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from tests.test_torch_babyai_step import run_lockstep
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 
 def test_bosslevel_pooled_best_effort_lockstep_matches_jax():

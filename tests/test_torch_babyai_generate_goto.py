@@ -40,6 +40,7 @@ from minigrid_tpu_torch.parallel.vector import VectorEnv
 
 from tests.test_torch_bridge import assert_state_equal, jax_to_numpy
 from tests.test_torch_zoo_generate import assert_contiguous, port_keys
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 INTEGER_PROGRAM = {"xla_backend_optimization_level": 0,
                    "xla_disable_hlo_passes": "fusion"}

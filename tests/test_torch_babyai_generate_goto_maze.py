@@ -15,6 +15,7 @@ from tests.test_torch_babyai_generate_goto import (
     check_generate,
     check_strategy,
 )
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 
 @pytest.mark.parametrize("env_id", GOTO_MAZE_IDS)

@@ -40,6 +40,7 @@ from tests.test_torch_babyai_generate_goto import (
 from tests.test_torch_bridge import _assert_fields, assert_registry_complete, jax_to_numpy
 from tests.test_torch_zoo_generate import EARLIER_IDS, ZOO_IDS
 from tests.test_torch_roomgrid_zoo import ROOMGRID_IDS
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 OPEN_IDS = ["BabyAI-Open-v0", "BabyAI-OpenRedDoor-v0", "BabyAI-OpenDoor-v0",
             "BabyAI-OpenDoorDebug-v0", "BabyAI-OpenDoorColor-v0",

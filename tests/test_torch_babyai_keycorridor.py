@@ -13,6 +13,7 @@ import minigrid_tpu_torch
 
 from tests.test_torch_babyai_generate_goto import check_generate, check_registry
 from tests.test_torch_babyai_levelgen import OTHER_IDS
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CORRIDOR_IDS = [i for i in OTHER_IDS if "KeyCorridor" in i]
 

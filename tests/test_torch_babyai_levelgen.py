@@ -45,6 +45,7 @@ from tests.test_torch_babyai_generate_goto import (
     check_strategy,
 )
 from tests.test_torch_zoo_generate import port_keys
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 LEVELGEN_IDS = ["BabyAI-GoToSeq-v0", "BabyAI-GoToSeqS5R2-v0", "BabyAI-PickupLoc-v0",
                 "BabyAI-Synth-v0", "BabyAI-SynthS5R2-v0", "BabyAI-SynthLoc-v0",

@@ -25,6 +25,7 @@ from tests.test_torch_babyai_generate_goto import (
 )
 from tests.test_torch_babyai_levelgen import OTHER_IDS
 from tests.test_torch_bridge import PORT_ID_COUNT, assert_registry_complete
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 NOT_CORRIDOR_IDS = [i for i in OTHER_IDS if "KeyCorridor" not in i]
 

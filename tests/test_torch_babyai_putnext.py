@@ -17,6 +17,7 @@ from tests.test_torch_babyai_generate_goto import (
     check_strategy,
 )
 from tests.test_torch_babyai_levelgen import PUTNEXT_IDS
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 FREE_HANDS_IDS = [i for i in PUTNEXT_IDS if "Carrying" not in i]
 

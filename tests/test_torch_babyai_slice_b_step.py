@@ -34,6 +34,7 @@ from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 from tests.test_torch_babyai_step import babyai_jax_state, run_lockstep
 from tests.test_torch_bridge import assert_state_equal
 from tests.test_torch_zoo_step import assert_step_equal
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
 

@@ -45,6 +45,7 @@ from minigrid_tpu_torch.parallel.vector import PooledState
 from tests.test_torch_babyai_generate_goto import INTEGER_PROGRAM
 from tests.test_torch_bridge import assert_state_equal
 from tests.test_torch_zoo_step import lockstep
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 
 def babyai_jax_state(fields: dict):

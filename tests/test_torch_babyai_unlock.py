@@ -23,6 +23,7 @@ from tests.test_torch_babyai_generate_goto import (
     check_strategy,
 )
 from tests.test_torch_babyai_levelgen import UNLOCK_IDS
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 
 @pytest.mark.parametrize("env_id", UNLOCK_IDS)

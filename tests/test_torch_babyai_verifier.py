@@ -48,6 +48,7 @@ from minigrid_tpu_torch.utils.convert import state_from_numpy
 
 from tests.test_torch_bridge import _numpy_tree
 from tests.test_torch_zoo_step import _jax_state
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 INTEGER_PROGRAM = {"xla_backend_optimization_level": 0,
                    "xla_disable_hlo_passes": "fusion"}

@@ -10,6 +10,7 @@ conversion bitwise against the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -31,6 +32,50 @@ from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 CPU = torch.device("cpu")
 # the ids of the JAX registry, every one of which the port registers
 PORT_ID_COUNT = 171
+
+
+# -- the port's test modules yield the CPU under pytest-xdist -----------------------
+
+# The niceness a port test module runs at under xdist: the JAX package's long
+# files on the other workers win every core they want, and the port's tests
+# take the cycles left over.
+PORT_TEST_NICE = 19
+
+
+def _set_nice(nice: int) -> None:
+    """Every thread of this process (XLA's and torch's pools included) at
+    niceness ``nice``; threads started later inherit it."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.setpriority(os.PRIO_PROCESS, int(tid), nice)
+        except (ProcessLookupError, PermissionError):
+            pass  # a thread that has just ended
+
+
+@pytest.fixture(scope="module", autouse=True)
+def yield_cpu():
+    """Under pytest-xdist, run the importing module with torch on one thread
+    and, where the process may raise its priority back afterwards (root), at
+    niceness ``PORT_TEST_NICE``; both restored at the module's end.  The
+    suite's wall is the JAX package's long files (the distribution tests,
+    the conformance sweep), each alone on its worker; at equal priority the
+    port's files, which run torch on a thread per core beside them, nearly
+    doubled their time.  Without xdist nothing changes."""
+    if not os.environ.get("PYTEST_XDIST_WORKER", "").startswith("gw"):
+        yield
+        return
+    threads = torch.get_num_threads()
+    nice = os.getpriority(os.PRIO_PROCESS, 0)
+    restorable = os.geteuid() == 0
+    if restorable:
+        _set_nice(max(nice, PORT_TEST_NICE))
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        if restorable:
+            _set_nice(nice)
 
 
 # -- bridge helpers (used by the other test_torch_* files) -------------------

@@ -45,6 +45,7 @@ from tests.test_torch_babyai_generate_goto import jax_program
 from tests.test_torch_bridge import assert_state_equal
 from tests.test_torch_zoo_generate import assert_contiguous, port_keys
 from tests.test_torch_zoo_step import _step_both, _teleport, lockstep
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 DATASET_IDS = ["ContrastiveDataset-v0", "ContrastiveTrajectoryDataset-v0",
                "MiniGrid-Negated-Simple-v0", "DirectionsDataset-v0", "BlocksDataset-v0"]

@@ -36,6 +36,7 @@ from minigrid_tpu_torch.parallel.vector import PooledState
 
 from tests.test_torch_bridge import assert_state_equal, random_packed, to_port
 from tests.test_torch_zoo_step import lockstep
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
 

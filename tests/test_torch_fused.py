@@ -33,6 +33,7 @@ from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
 from minigrid_tpu_torch.utils.convert import fused_state_to_numpy
 
 from tests.test_torch_bridge import assert_state_equal
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
 EMPTY_IDS = ["MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-Random-5x5-v0",

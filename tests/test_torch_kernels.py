@@ -595,3 +595,60 @@ def _assert_same_fields(a: dict, b: dict, where: str = "") -> None:
             assert a[k] is None and b[k] is None, where + k
         else:
             np.testing.assert_array_equal(a[k], b[k], err_msg=where + k)
+
+
+# -- wrappers and rendering on the card --------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,kwargs,gathers", [
+    ("RGBImgPartialObsWrapper", {"channels_first": True}, 2),
+    ("RGBImgObsWrapper", {}, 2),
+    ("ViewSizeWrapper", {"agent_view_size": 11}, 2),
+    ("ActionBonus", {}, 1),
+    ("OneHotPartialObsWrapper", {}, 1),
+])
+def test_wrapped_walk_on_the_card_matches_the_cpu(cuda, wrapper, kwargs, gathers):
+    """A wrapped DoorKey-8x8 at B=64 through 12 steps of 4-step episodes:
+    ``gathers`` launches an observation on the card, none on the CPU, and the
+    same observations, rewards (as float32 bits), flags and final state
+    (a bonus wrapper's counts included)."""
+    from minigrid_tpu_torch import wrappers
+    from minigrid_tpu_torch.parallel.vector import VectorEnv
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        env = getattr(wrappers, wrapper)(
+            minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0", max_steps=4), **kwargs)
+        venv = VectorEnv(env, 64, device=dev)
+        before = obs_gather.LAUNCHES
+        obs, st = venv.reset(rng.PRNGKey(8, dev))
+        steps = []
+        for t in range(12):
+            a = rng.randint(rng.PRNGKey(400 + t, dev), (64,), 0, 7)
+            obs, st, reward, term, trunc, _ = venv.step(st, a)
+            steps.append([obs[k].cpu() for k in sorted(obs)]
+                         + [reward.cpu().view(torch.int32), term.cpu(), trunc.cpu()])
+        runs[dev.type] = (steps, state_to_numpy(st), obs_gather.LAUNCHES - before)
+    assert runs["cuda"][2] == 13 * gathers and runs["cpu"][2] == 0
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert all(torch.equal(x, y) for x, y in zip(g, c))
+    _assert_same_fields(runs["cuda"][1], runs["cpu"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_pov_render_batch_on_the_card_matches_the_cpu(cuda, channels_first):
+    """The atlas gather on a ragged B=4097 of walked DoorKey-8x8 states:
+    bitwise the CPU's frames, contiguous, the atlas moved once."""
+    from minigrid_tpu_torch.core.state import map_fields
+    from minigrid_tpu_torch.ops import render
+
+    _, p, st = _walked_states("MiniGrid-DoorKey-8x8-v0", 4097, cuda, steps=12)
+    atlas = render.get_atlas(8, cuda)
+    assert render.get_atlas(8, "cuda") is atlas
+    got = render.pov_render_batch(st, p, atlas, channels_first)
+    cpu = map_fields(lambda x: x.cpu(), st)
+    want = render.pov_render_batch(cpu, p, render.get_atlas(8, "cpu"), channels_first)
+    assert got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)

@@ -31,6 +31,7 @@ from minigrid_tpu_torch.core.state import EnvParams, base_state
 from minigrid_tpu_torch.ops import obs_gather
 
 from tests.test_torch_bridge import random_packed, to_port
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 
 @pytest.fixture

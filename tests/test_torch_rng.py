@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 
 from minigrid_tpu_torch.core import rng
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
 

@@ -30,6 +30,7 @@ from minigrid_tpu.core.roomgrid import RoomGridEnv as JRoomGridEnv
 
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.roomgrid import RoomGridEnv
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 B = 32
 INTEGER_ONLY = {"xla_backend_optimization_level": 0}

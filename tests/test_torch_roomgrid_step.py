@@ -32,6 +32,7 @@ from minigrid_tpu_torch.parallel.vector import PooledState
 
 from tests.test_torch_bridge import assert_state_equal
 from tests.test_torch_zoo_step import _levels, _step_both, _teleport, lockstep
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 LOCKSTEP = ["MiniGrid-Unlock-v0", "MiniGrid-UnlockPickup-v0",
             "MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-KeyCorridorS4R3-v0",

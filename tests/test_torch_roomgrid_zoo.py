@@ -30,6 +30,7 @@ from minigrid_tpu_torch.parallel.vector import VectorEnv
 
 from tests.test_torch_bridge import assert_state_equal
 from tests.test_torch_zoo_generate import FAST_COMPILE, assert_contiguous, port_keys
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 FAMILIES = {
     "Unlock": ["MiniGrid-Unlock-v0"],

@@ -28,6 +28,7 @@ from minigrid_tpu_torch.core.state import EnvParams
 from minigrid_tpu_torch.utils.convert import state_to_numpy
 
 from tests.test_torch_bridge import assert_state_equal, to_port
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 STEPS = 64
 T = JC.OBJECT_TO_IDX

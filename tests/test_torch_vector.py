@@ -29,6 +29,7 @@ from minigrid_tpu_torch.parallel.vector import PooledState
 from minigrid_tpu_torch.tools import bench
 
 from tests.test_torch_bridge import assert_state_equal, jax_to_numpy
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"

@@ -26,6 +26,7 @@ from minigrid_tpu_torch.core.state import map_fields
 from minigrid_tpu_torch.parallel.vector import VectorEnv
 
 from tests.test_torch_bridge import assert_state_equal
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 FAMILIES = {
     "LavaGap": ["MiniGrid-LavaGapS5-v0", "MiniGrid-LavaGapS6-v0",

@@ -40,6 +40,7 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
 from tests.test_torch_bridge import assert_state_equal
+from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
 
