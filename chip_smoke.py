@@ -100,6 +100,23 @@ printing a result:
    symbolic one, the atlas gather's time against its bound,
    ``tools/benchmark`` on LavaGapS7 and a ``tools/battery`` row with
    ``obs=rgb_chw``;
+
+   then (phase 4g) the learner: a PPO update on DoorKey-8x8, a
+   ``RecurrentPPO`` update on MemoryS7 (both B=8, T=16, 2 x 2) and 10 steps
+   of ``bc_train``, float32 networks, on the card and on the CPU from one
+   key with TF32 off (rollouts equal; values, metrics and parameters within
+   the CPU tests' tolerances); PPO at ``examples/train_ppo.py``'s width
+   (B=1024, T=128, 4 epochs x 8 minibatches, the default bf16
+   ``ActorCritic``) for 3 updates timed by phase (rollout, GAE, optimize)
+   with the launch counts zeroed before each (2 ``obs_gather`` launches a
+   rollout step, none of ``fused_step``; 32 optimizer steps an update; no
+   host sync inside the second), env-steps/s through the loop, peak
+   memory, and a fourth update under ``torch.profiler`` for the device's
+   idle share; one pooled update on BabyAI-GoToRedBallGrey (B=1024, T=32,
+   refill period 8; the ring's tick T); one ``RecurrentPPO`` update at
+   ``examples/train_rnn_ppo.py``'s config (B=512, T=256, 4 x 4); and
+   ``bc_train`` at ``BCConfig``'s defaults on 1024 x 8 pairs of a rollout
+   of the trained policy (its loss must fall), then ``evaluate_policy``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
@@ -273,6 +290,31 @@ WRAPPED_TIMED_STEPS = 32  # best of 2
 # bonus 1/sqrt(n) and arctan (both are reported)
 FLOAT_ULP = 2
 TILE = 8  # RGBImg*Wrapper's default
+
+# phase 4g: the learner.  PPO at examples/train_ppo.py's width on DoorKey-8x8
+# with the default bf16 ActorCritic (1,850,201 parameters at V=7)
+LEARNER = dict(num_envs=1024, num_steps=128, update_epochs=4, num_minibatches=8)
+LEARNER_UPDATES = 3  # timed, the first left out of the rate; a fourth is traced
+LEARNER_PARAMS = 1_850_201
+# the card == CPU runs, at the CPU tests' size (tests/test_torch_rl_*.py)
+LEARNER_SMALL = dict(num_envs=8, num_steps=16, num_updates=2, update_epochs=2,
+                     num_minibatches=2)
+LEARNER_SMALL_LIMIT = 10  # DoorKey-8x8 at 10 steps: truncations in a 16-step rollout
+RNN_SMALL_LIMIT = 6  # MemoryS7 at 6 steps: the carry clears mid-rollout
+BC_SMALL_STEPS = 10
+POOLED_LEARNER = "BabyAI-GoToRedBallGrey-v0"  # tests/test_rl.py's pooled id
+POOLED_LEARNER_CFG = dict(num_envs=1024, num_steps=32, refill_period=8)
+RNN_LEARNER = "MiniGrid-MemoryS7-v0"  # examples/train_rnn_ppo.py's config
+RNN_LEARNER_CFG = dict(num_envs=512, num_steps=256, num_updates=150, update_epochs=4,
+                       num_minibatches=4, lr=1e-3, ent_coef=0.05, gamma=0.95)
+BC_ENVS, BC_STEPS = 1024, 8  # (obs, action) pairs of the BC dataset
+BC_EVAL_EPISODES, BC_EVAL_STEPS = 2, 16
+# card == CPU tolerances, the CPU tests' (tests/test_torch_rl_ppo.py): values
+# and log-probs; metrics (relative); each parameter within a tenth of one
+# step's lr, each within 1 % (L2) of how far the update moved it
+LEARNER_VALUE_ATOL = 1e-5
+LEARNER_METRIC_RTOL = 1e-4
+LEARNER_PARAM_REL_L2 = 1e-2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -1546,6 +1588,377 @@ def drive_wrappers(dev, counters: dict, card: str) -> dict:
     return out
 
 
+# -- phase 4g: the learner --------------------------------------------------------
+
+def learner_small_run(dev, kind: str) -> dict:
+    """One small learner run of ``kind`` on ``dev`` with a float32 network
+    from one key: ``ppo`` (one PPO update on DoorKey-8x8 at a 10-step limit,
+    its rollout kept), ``rnn`` (one RecurrentPPO update on MemoryS7 at a
+    6-step limit) or ``bc`` (``bc_train`` on a numpy dataset).  Returns the
+    trajectory, the metrics and the parameters before (PPO) and after it, on
+    the CPU."""
+    import numpy as np
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch import rl
+    from minigrid_tpu_torch.core import rng
+
+    cfg = rl.PPOConfig(**LEARNER_SMALL)
+    traj = {}
+    if kind in ("ppo", "rnn"):
+        if kind == "ppo":
+            env = minigrid_tpu_torch.make(ENV_ID, max_steps=LEARNER_SMALL_LIMIT)
+            trainer = rl.PPO(env, None, cfg, device=dev, network=rl.ActorCritic(
+                env.num_actions, dtype=torch.float32))
+        else:
+            env = minigrid_tpu_torch.make(RNN_LEARNER, max_steps=RNN_SMALL_LIMIT)
+            trainer = rl.RecurrentPPO(env, None, cfg, device=dev,
+                                      network=rl.RecurrentActorCritic(
+                                          env.num_actions, dtype=torch.float32))
+        runner = trainer.init(rng.PRNGKey(0, dev))
+        init = {n: p.detach().cpu().clone()
+                for n, p in runner.train_state.model.named_parameters()}
+        _, traj = trainer.rollout(runner)
+        runner, metrics = trainer.update(runner)
+        model, lr = runner.train_state.model, cfg.lr
+    else:
+        r = np.random.default_rng(0)
+        image = np.stack([r.integers(0, 11, (96, 7, 7)), r.integers(0, 6, (96, 7, 7)),
+                          r.integers(0, 3, (96, 7, 7))], axis=-1).astype(np.uint8)
+        data = {"obs": {"image": image, "direction": r.integers(0, 4, 96).astype(np.int32),
+                        "mission": r.integers(0, 3, (96, 4)).astype(np.int32)},
+                "action": (image[:, 3, 5, 0] % 7).astype(np.int32)}
+        data = {"obs": {k: torch.from_numpy(v).to(dev) for k, v in data["obs"].items()},
+                "action": torch.from_numpy(data["action"]).to(dev)}
+        bc = rl.BCConfig(batch_size=16, num_steps=BC_SMALL_STEPS)
+        model, metrics = rl.bc_train(minigrid_tpu_torch.make(ENV_ID), data, bc,
+                                     rng.PRNGKey(3, dev),
+                                     network=rl.ActorCritic(dtype=torch.float32),
+                                     device=dev)
+        lr, init = bc.lr, None
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.detach().cpu()
+                for k, v in tree.items()}
+
+    return {"traj": cpu(traj), "metrics": cpu(metrics), "lr": lr, "init": init,
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+
+
+def compare_learner_runs(got: dict, want: dict, what: str) -> dict:
+    """A card run against the CPU run, at the CPU tests' tolerances: the
+    trajectory's observations, actions, reward bits and flags equal, values
+    and log-probs within LEARNER_VALUE_ATOL; metrics within
+    LEARNER_METRIC_RTOL (accuracy within one sample of a BC batch); every
+    parameter within a tenth of one step's learning rate, each within
+    LEARNER_PARAM_REL_L2 of how far it moved.  Returns the largest errors."""
+    errs = {"value": 0.0, "metric": 0.0, "param": 0.0}
+    traj_got, traj_want = dict(got["traj"]), dict(want["traj"])
+    for k, v in traj_got.pop("obs", {}).items():
+        if mismatches(v, traj_want["obs"][k]):
+            raise AssertionError(f"{what}: rollout obs {k} differs card vs CPU")
+    traj_want.pop("obs", None)
+    for k, v in traj_got.items():
+        w = traj_want[k]
+        if k in ("value", "log_prob", "trunc_value"):
+            err = float((v - w).abs().max())
+            errs["value"] = max(errs["value"], err)
+            if err > LEARNER_VALUE_ATOL:
+                raise AssertionError(f"{what}: rollout {k} off by {err} card vs CPU")
+        elif mismatches(v.view(torch.int32) if v.dtype == torch.float32 else v,
+                        w.view(torch.int32) if w.dtype == torch.float32 else w):
+            raise AssertionError(f"{what}: rollout {k} differs card vs CPU")
+    for k, v in got["metrics"].items():
+        w = want["metrics"][k].to(v.dtype)
+        if k == "accuracy":
+            ok = bool(((v - w).abs() <= 1 / 16 + 1e-6).all())
+        else:
+            err = float(((v.double() - w.double()).abs()
+                         / w.double().abs().clamp(min=1e-3)).max())
+            errs["metric"] = max(errs["metric"], err)
+            ok = err <= LEARNER_METRIC_RTOL
+        if not ok or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: metric {k} {v} card, {w} CPU")
+    for n, p in got["params"].items():
+        diff = (p - want["params"][n]).abs()
+        errs["param"] = max(errs["param"], float(diff.max()))
+        if float(diff.max()) > 0.1 * got["lr"]:
+            raise AssertionError(f"{what}: parameter {n} off by {float(diff.max())}")
+        if want["init"] is not None:
+            moved = float((want["params"][n] - want["init"][n]).norm())
+            if float((p - want["params"][n]).norm()) > LEARNER_PARAM_REL_L2 * moved:
+                raise AssertionError(f"{what}: {n} off card vs CPU by more than "
+                                     f"{LEARNER_PARAM_REL_L2} of its move")
+    return errs
+
+
+def learner_card_matches_cpu(dev, kinds=("ppo", "rnn", "bc")) -> dict:
+    """Phase 4g (a): each small learner run on the card and on the CPU from
+    the same key, TF32 off (cuDNN's default convolutions round their inputs
+    to TF32).  Returns each run's largest errors."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for kind in kinds:
+            card_run = learner_small_run(dev, kind)
+            cpu_run = learner_small_run(torch.device("cpu"), kind)
+            out[kind] = compare_learner_runs(card_run, cpu_run, f"learner {kind}")
+        return out
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def trace_device(fn) -> dict:
+    """``fn()`` under ``torch.profiler`` (CUDA activity): wall seconds, the
+    device's busy seconds (kernels, copies and fills summed from the raw
+    trace events; a key_averages() summary of a trace this long takes
+    minutes), its idle share and the kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ns, launches = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+        elif e.name() in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            launches += 1
+    return {"wall_s": wall, "busy_s": busy_ns / 1e9,
+            "idle_share": 1 - busy_ns / 1e9 / wall, "launches": launches}
+
+
+def finite_metrics(metrics: dict, what: str) -> dict:
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if v != v or abs(v) == float("inf")]
+    if bad:
+        raise AssertionError(f"{what}: metrics not finite: {bad}")
+    return values
+
+
+def zero_counts(counters: dict) -> None:
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.LAUNCHES = 0
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: module.LAUNCHES for name, module in counters.items()}
+
+
+def drive_learner(dev, counters: dict, card: str) -> dict:
+    """Phase 4g: (a) the small learner runs card == CPU; (b) PPO at
+    examples/train_ppo.py's width on DoorKey-8x8 with the default bf16
+    ActorCritic, LEARNER_UPDATES timed updates (rollout, GAE, optimize) with
+    the launch counts zeroed before each, then one traced; (c) one pooled
+    update with the bulk refill; (d) one RecurrentPPO update at
+    examples/train_rnn_ppo.py's config; (e) behavior cloning on a dataset from
+    a rollout of (b)'s policy, then evaluate_policy.  Returns what PERF.md
+    reads."""
+    import warnings
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch import rl
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.parallel.vector import VectorEnv
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    errs = learner_card_matches_cpu(dev)
+    out["seconds"]["card == CPU"] = time.perf_counter() - t0
+    out["card_vs_cpu"] = errs
+    log(f"  (a) card == CPU, float32 networks, TF32 off: PPO {ENV_ID} and RecurrentPPO "
+        f"{RNN_LEARNER} B={LEARNER_SMALL['num_envs']} T={LEARNER_SMALL['num_steps']} "
+        f"{LEARNER_SMALL['update_epochs']}x{LEARNER_SMALL['num_minibatches']}, bc_train "
+        f"{BC_SMALL_STEPS} steps: rollouts equal, largest errors {errs} "
+        f"({out['seconds']['card == CPU']:.1f} s)")
+
+    # (b) the slice at full width
+    t_b = time.perf_counter()
+    env = minigrid_tpu_torch.make(ENV_ID)
+    cfg = rl.PPOConfig(**LEARNER, num_updates=LEARNER_UPDATES + 1)
+    trainer = rl.PPO(env, None, cfg, device=dev)
+    runner = trainer.init(rng.PRNGKey(0, dev))
+    model = runner.train_state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != LEARNER_PARAMS or model.dtype != torch.bfloat16:
+        raise AssertionError(f"the default ActorCritic has {n_params} parameters, "
+                             f"dtype {model.dtype}")
+    before = [p.detach().clone() for p in model.parameters()]
+    steps_per_update = cfg.update_epochs * cfg.num_minibatches
+    b, t = cfg.num_envs, cfg.num_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for u in range(LEARNER_UPDATES):
+        zero_counts(counters)
+        watch = u == 1  # the second update: count the host syncs inside it
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if watch:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                runner, traj = trainer.rollout(runner)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                batch = trainer.advantages(runner, traj)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                runner, metrics = trainer.optimize(runner, batch)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if watch:
+            syncs = [str(w.message).splitlines()[0] for w in caught
+                     if "synchroniz" in str(w.message)]
+            if syncs:  # the fused DoorKey engine reads nothing back either
+                raise AssertionError(f"update 2 read the device {len(syncs)} times: "
+                                     f"{syncs[:3]}")
+        launches = read_counts(counters)
+        if launches["obs_gather"] != 2 * t or launches["fused_step"]:
+            raise AssertionError(f"update {u + 1}: launches {launches}, expected "
+                                 f"{2 * t} obs_gather (obs and final_obs a step)")
+        if runner.train_state.step != (u + 1) * steps_per_update:
+            raise AssertionError(f"update {u + 1}: {runner.train_state.step} optimizer steps")
+        values = finite_metrics(metrics, f"update {u + 1}")
+        row = {"rollout_s": t1 - t0, "gae_s": t2 - t1, "optimize_s": t3 - t2,
+               "update_s": t3 - t0, "launches": launches, "metrics": values}
+        rows.append(row)
+        log(f"  (b) update {u + 1}: {row['update_s']:.3f} s (rollout {row['rollout_s']:.3f}, "
+            f"GAE {row['gae_s']:.4f}, optimize {row['optimize_s']:.3f}); obs_gather "
+            f"{launches['obs_gather']} launches, optimizer step "
+            f"{runner.train_state.step}; loss {values['loss']:.5f}, entropy "
+            f"{values['entropy']:.5f}, episodes {values['episodes']:.0f}, return "
+            f"{values['mean_return']:.4f} [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    if all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
+        raise AssertionError("the parameters did not move")
+    timed = rows[1:]
+    rate = len(timed) * b * t / sum(r["update_s"] for r in timed)
+    trace = trace_device(lambda: trainer.update(runner))
+    out.update(rows=rows, env_steps_per_s=rate, peak_bytes=peak, trace=trace)
+    out["seconds"]["full width"] = time.perf_counter() - t_b
+    log(f"  (b) PPO {ENV_ID} B={b} T={t} {cfg.update_epochs}x{cfg.num_minibatches}, bf16 "
+        f"ActorCritic ({n_params:,} parameters): {rate:.0f} env-steps/s through the "
+        f"loop (updates 2-{LEARNER_UPDATES}), peak memory {peak / 2**20:.1f} MiB; "
+        f"update {LEARNER_UPDATES + 1} under torch.profiler: {trace['wall_s']:.3f} s wall, "
+        f"device busy {trace['busy_s']:.3f} s, idle share {trace['idle_share']:.4f}, "
+        f"{trace['launches']} launches; no host sync inside update 2 "
+        f"({out['seconds']['full width']:.1f} s) [{card}]")
+
+    # (c) one pooled update with the bulk refill
+    t0 = time.perf_counter()
+    penv = minigrid_tpu_torch.make(POOLED_LEARNER)
+    pcfg = rl.PPOConfig(**POOLED_LEARNER_CFG, num_updates=1)
+    ptrainer = rl.PPO(penv, None, pcfg, device=dev)
+    if ptrainer.venv.reset_strategy != "pooled":
+        raise AssertionError(f"{POOLED_LEARNER}: strategy {ptrainer.venv.reset_strategy}")
+    prunner = ptrainer.init(rng.PRNGKey(1, dev))
+    zero_counts(counters)
+    t1 = time.perf_counter()
+    prunner, pmetrics = ptrainer.update(prunner)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = read_counts(counters)
+    values = finite_metrics(pmetrics, POOLED_LEARNER)
+    tick = int(prunner.env_state.tick)
+    if tick != pcfg.num_steps or launches["obs_gather"] != 2 * pcfg.num_steps:
+        raise AssertionError(f"{POOLED_LEARNER}: tick {tick}, launches {launches}")
+    n_fresh, n_stale = int(prunner.env_state.n_fresh), int(prunner.env_state.n_stale)
+    out["pooled"] = {"update_s": seconds, "window": ptrainer.venv.pool_refill,
+                     "n_fresh": n_fresh, "n_stale": n_stale}
+    out["seconds"]["pooled"] = time.perf_counter() - t0
+    log(f"  (c) PPO {POOLED_LEARNER} B={pcfg.num_envs} T={pcfg.num_steps} pooled, window "
+        f"{ptrainer.venv.pool_refill}, refill_period {pcfg.refill_period}: one update "
+        f"{seconds:.3f} s, tick {tick}, obs_gather {launches['obs_gather']} launches, "
+        f"auto-resets fresh {n_fresh} stale {n_stale}, episodes {values['episodes']:.0f} "
+        f"[{card}]")
+
+    # (d) one recurrent update
+    t0 = time.perf_counter()
+    renv = minigrid_tpu_torch.make(RNN_LEARNER)
+    rcfg = rl.PPOConfig(**RNN_LEARNER_CFG)
+    rtrainer = rl.RecurrentPPO(renv, None, rcfg, device=dev)
+    rrunner = rtrainer.init(rng.PRNGKey(1, dev))
+    zero_counts(counters)
+    t1 = time.perf_counter()
+    initial = rrunner.carry
+    rrunner, rtraj = rtrainer.rollout(rrunner)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rbatch = rtrainer.advantages(rrunner, rtraj)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rrunner, rmetrics = rtrainer.optimize(rrunner, rbatch, initial)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    launches = read_counts(counters)
+    values = finite_metrics(rmetrics, RNN_LEARNER)
+    rsteps = rcfg.update_epochs * rcfg.num_minibatches
+    if launches["obs_gather"] != rcfg.num_steps or rrunner.train_state.step != rsteps:
+        raise AssertionError(f"{RNN_LEARNER}: launches {launches}, "
+                             f"{rrunner.train_state.step} optimizer steps")
+    out["rnn"] = {"update_s": t4 - t1, "rollout_s": t2 - t1, "gae_s": t3 - t2,
+                  "optimize_s": t4 - t3}
+    out["seconds"]["rnn"] = time.perf_counter() - t0
+    log(f"  (d) RecurrentPPO {RNN_LEARNER} B={rcfg.num_envs} T={rcfg.num_steps} "
+        f"{rcfg.update_epochs}x{rcfg.num_minibatches}: one update {t4 - t1:.3f} s "
+        f"(rollout {t2 - t1:.3f}, GAE {t3 - t2:.4f}, optimize {t4 - t3:.3f}), "
+        f"{rcfg.num_envs * rcfg.num_steps / (t4 - t1):.0f} env-steps/s, obs_gather "
+        f"{launches['obs_gather']} launches, loss {values['loss']:.5f} [{card}]")
+
+    # (e) behavior cloning on a rollout of (b)'s greedy policy
+    t0 = time.perf_counter()
+    venv = VectorEnv(env, BC_ENVS, device=dev)
+    obs, st = venv.reset(rng.PRNGKey(5, dev))
+    frames, actions = [], []
+    with torch.no_grad():
+        for _ in range(BC_STEPS):
+            logits, _ = model(obs)
+            action = torch.argmax(logits, dim=-1).to(torch.int32)
+            frames.append({k: v.cpu().numpy() for k, v in obs.items()})
+            actions.append(action.cpu().numpy())
+            obs, st, *_ = venv.step(st, action)
+    demos = [(None, [{k: f[k][i] for k in f} for f in frames], [a[i] for a in actions])
+             for i in range(BC_ENVS)]
+    ds = rl.pack_bc_dataset(demos, device=dev)
+    if tuple(ds["action"].shape) != (BC_ENVS * BC_STEPS,):
+        raise AssertionError(f"BC dataset of {tuple(ds['action'].shape)} actions")
+    t1 = time.perf_counter()
+    bc_cfg = rl.BCConfig()
+    bc_model, bc_metrics = rl.bc_train(env, ds, bc_cfg, rng.PRNGKey(6, dev), device=dev)
+    loss = bc_metrics["loss"].cpu()
+    bc_seconds = time.perf_counter() - t1
+    first, last = float(loss[:10].mean()), float(loss[-50:].mean())
+    if not bool(torch.isfinite(loss).all()) or not last < first:
+        raise AssertionError(f"bc_train: loss {first} over the first 10 steps, {last} "
+                             f"over the last 50")
+    zero_counts(counters)
+    ev = rl.evaluate_policy(env, bc_model, rng.PRNGKey(7, dev),
+                            num_episodes=BC_EVAL_EPISODES, max_steps=BC_EVAL_STEPS,
+                            device=dev)
+    launches = read_counts(counters)
+    if not BC_EVAL_EPISODES * 2 <= launches["obs_gather"] <= BC_EVAL_EPISODES * (
+            BC_EVAL_STEPS + 1):
+        raise AssertionError(f"evaluate_policy: launches {launches}")
+    out["bc"] = {"train_s": bc_seconds, "loss_first": first, "loss_last": last,
+                 "accuracy_last": float(bc_metrics["accuracy"][-50:].mean()),
+                 "evaluate": ev}
+    out["seconds"]["bc"] = time.perf_counter() - t0
+    log(f"  (e) bc_train on {BC_ENVS}x{BC_STEPS} (obs, greedy action) pairs of (b)'s "
+        f"policy, batch {bc_cfg.batch_size}, {bc_cfg.num_steps} steps: {bc_seconds:.3f} s, "
+        f"loss {first:.4f} -> {last:.4f}, accuracy {out['bc']['accuracy_last']:.3f}; "
+        f"evaluate_policy {BC_EVAL_EPISODES} episodes capped at {BC_EVAL_STEPS} steps: "
+        f"{ev}, obs_gather {launches['obs_gather']} launches [{card}]")
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -1701,6 +2114,11 @@ def main() -> int:
     t0 = time.perf_counter()
     drive_wrappers(dev, counters, card)
     log(f"  the wrappers phase took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4g: the learner")
+    t0 = time.perf_counter()
+    drive_learner(dev, counters, card)
+    log(f"  the learner phase took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)

@@ -11,9 +11,12 @@ included) is one hand-written CUDA kernel.  Beside them: the 15 observation
 and reward wrappers of ``minigrid_tpu_torch.wrappers`` (the exploration
 bonuses' count tables ride in the engine's state), the RGB renderer of
 ``minigrid_tpu_torch.ops.render`` (a texture atlas built once on the host,
-full and POV frames as one row gather, ``Env.get_frame``), and the timing
-tools ``tools/bench.py``, ``tools/benchmark.py`` and ``tools/battery.py``.
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+full and POV frames as one row gather, ``Env.get_frame``), the timing
+tools ``tools/bench.py``, ``tools/benchmark.py`` and ``tools/battery.py``, and
+the learner of ``minigrid_tpu_torch.rl`` (PPO with GAE, recurrent PPO and
+behavior cloning, driven by ``tools/train_ppo.py`` and
+``tools/train_rnn_ppo.py``).  Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
 
     import minigrid_tpu_torch as mgt
     from minigrid_tpu_torch.core import rng
@@ -29,6 +32,11 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
     pixels = mgt.VectorEnv(RGBImgPartialObsWrapper(mgt.make("MiniGrid-DoorKey-8x8-v0"),
                                                    channels_first=True), 4096)
+
+    from minigrid_tpu_torch.rl import PPO, PPOConfig
+
+    trainer = PPO(mgt.make("MiniGrid-DoorKey-5x5-v0"), config=PPOConfig(num_envs=1024))
+    runner, metrics = trainer.train(trainer.init(rng.PRNGKey(0)), num_updates=20)
 """
 
 from __future__ import annotations

@@ -18,7 +18,11 @@ reproduces the calls they make, bit for bit, as jax 0.9 computes them with
 * float32 ``uniform`` is ``jax.random._uniform``: ``bits >> 9 | 0x3f800000``
   bitcast to float, minus 1, scaled, clamped below at ``minval``;
 * ``categorical`` (``mode="low"``) is ``argmax(-log(-log(u)) + logits)`` with
-  ``u = uniform(key, minval=tiny, maxval=1)``, the first index on ties.
+  ``u = uniform(key, minval=tiny, maxval=1)``, the first index on ties: one
+  key per row of logits, the form ``jax.vmap`` gives; ``categorical_one_key``
+  is the same draw from ONE key over a whole batch of logits, the form of
+  ``jax.random.categorical(key, logits[B, n])`` itself (the learner's
+  action draw).
 
 ``top_k`` is ``jax.lax.top_k``'s order (not a draw): largest first, equal
 values lower index first.
@@ -184,8 +188,13 @@ def uniform(keys: torch.Tensor, shape: tuple = (), minval: float = 0.0,
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor,
                 mode: str = "low") -> torch.Tensor:
-    """``jax.random.categorical(key, logits)`` over the last dim: keys
-    ``[..., 2]`` and float32 logits ``[..., n]`` -> int32 ``[...]``.
+    """``jax.random.categorical(key, logits)`` per row, over the last dim:
+    keys ``[..., 2]`` and float32 logits ``[..., n]`` -> int32 ``[...]``,
+    each row drawn from its own key (leading dims broadcast), which is what
+    ``jax.vmap`` of the call over per-env keys gives.  A single key ``[2]``
+    broadcasts ONE row of noise over every row of logits; that is not
+    ``jax.random.categorical(key, logits[B, n])``, which draws ``(B, n)``
+    noise from the one key: use :func:`categorical_one_key` for that.
 
     The Gumbel-max draw of ``mode="low"``: ``argmax(-log(-log(u)) + logits)``
     for ``u = uniform(key, (n,), tiny, 1)``, the first index on ties, index 0
@@ -201,6 +210,22 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor,
     if mode != "low":
         raise ValueError(f"categorical supports mode='low' only, got {mode!r}")
     u = uniform(keys, (logits.shape[-1],), _TINY, 1.0)
+    return _gumbel_argmax(u, logits)
+
+
+def categorical_one_key(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` with ONE key ``[2]`` over a
+    batch of float32 logits ``[..., n]`` -> int32 ``[...]``: the noise is
+    ``uniform(key, logits.shape, tiny, 1)``, one draw over the whole shape,
+    as JAX draws it when a single key meets batched logits (the learner's
+    action draw, ``minigrid_tpu/rl/ppo.py:346``).  Same Gumbel-max and tie
+    rule as :func:`categorical`."""
+    if key.shape != (2,):
+        raise ValueError(f"categorical_one_key takes one key [2], got {tuple(key.shape)}")
+    return _gumbel_argmax(uniform(key, tuple(logits.shape), _TINY, 1.0), logits)
+
+
+def _gumbel_argmax(u: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(gumbel + logits, dim=-1).to(torch.int32)
 

@@ -18,6 +18,13 @@ int32.
 ``FusedVectorEnv`` across: the JAX package keeps its grid as ``[N, LANES]``
 rows, ``LANES = max(W*H, V*V)``, whose lanes past ``W*H`` are packed grey
 walls; the port keeps ``[N, W, H]``.
+
+``actor_critic_from_flax``/``actor_critic_to_flax`` and
+``recurrent_from_flax``/``recurrent_to_flax`` carry the learner's network
+parameters across, bit for bit: the flax trees of ``minigrid_tpu.rl`` as
+nested dicts of numpy arrays on one side, the port's ``torch.nn`` modules (or
+a dict of tensors keyed by their parameter names, such as gradients) on the
+other.
 """
 
 from __future__ import annotations
@@ -166,3 +173,146 @@ def fused_state_to_numpy(fs: dict, lanes: int) -> dict:
     out["grid"] = np.concatenate([grid, pad], axis=1)
     out["rng"] = out["rng"].astype(np.uint32)
     return out
+
+
+# -- network parameters: the flax trees of minigrid_tpu/rl ------------------------------
+#
+# A tree is the nested dict of numpy arrays that
+# ``jax.tree_util.tree_map(np.asarray, variables)`` gives (``{"params": ...}``).
+# Dense kernels are ``[in, out]`` in flax and ``weight [out, in]`` here; conv
+# kernels HWIO there and OIHW here; embedding tables are the same.  The LSTM
+# cell's four input kernels (ii, if, ig, io; no bias) and four hidden kernels
+# (hi, hf, hg, ho, with the biases) stack, transposed, into ``weight_ih``,
+# ``weight_hh`` and ``bias_hh``.  Every value is copied bit for bit.
+
+_EMBEDS = ("type_embed", "color_embed", "state_embed", "dir_embed", "mission_embed")
+_GATES = "ifgo"
+
+
+def _dense_to_flax(sd: dict, prefix: str) -> dict:
+    return {"kernel": sd[prefix + "weight"].T, "bias": sd[prefix + "bias"]}
+
+
+def _encoder_to_flax(sd: dict) -> dict:
+    out = {f"Embed_{i}": {"embedding": sd[f"encoder.{name}.weight"]}
+           for i, name in enumerate(_EMBEDS)}
+    i = 0
+    while f"encoder.convs.{i}.weight" in sd:
+        out[f"Conv_{i}"] = {"kernel": sd[f"encoder.convs.{i}.weight"].transpose(2, 3, 1, 0),
+                            "bias": sd[f"encoder.convs.{i}.bias"]}
+        i += 1
+    out["Dense_0"] = _dense_to_flax(sd, "encoder.dense.")
+    return out
+
+
+def _numpy_state(params) -> dict:
+    """A module's parameters, or a dict of tensors keyed by parameter name
+    (gradients, say), as float32 numpy keyed by name."""
+    named = params.named_parameters() if isinstance(params, torch.nn.Module) else params.items()
+    return {k: v.detach().cpu().numpy() for k, v in named}
+
+
+def _contiguous(tree):
+    if isinstance(tree, dict):
+        return {k: _contiguous(v) for k, v in tree.items()}
+    return np.ascontiguousarray(tree)
+
+
+def actor_critic_to_flax(params) -> dict:
+    """An ``ActorCritic``'s parameters (the module, or a dict of tensors
+    keyed by its parameter names, such as their gradients) -> the flax
+    ``{"params": ...}`` tree of ``minigrid_tpu.rl.ActorCritic``."""
+    sd = _numpy_state(params)
+    return _contiguous({"params": {
+        "ObsEncoder_0": _encoder_to_flax(sd),
+        "Dense_0": _dense_to_flax(sd, "dense."),
+        "Dense_1": _dense_to_flax(sd, "policy."),
+        "Dense_2": _dense_to_flax(sd, "value."),
+    }})
+
+
+def recurrent_to_flax(params) -> dict:
+    """A ``RecurrentActorCritic``'s parameters (module or dict of tensors)
+    -> the flax tree of ``minigrid_tpu.rl.RecurrentActorCritic``."""
+    sd = _numpy_state(params)
+    h = sd["cell.weight_hh"].shape[1]
+    cell = {}
+    for g, gate in enumerate(_GATES):
+        rows = slice(g * h, (g + 1) * h)
+        cell["i" + gate] = {"kernel": sd["cell.weight_ih"][rows].T}
+        cell["h" + gate] = {"kernel": sd["cell.weight_hh"][rows].T,
+                            "bias": sd["cell.bias_hh"][rows]}
+    return _contiguous({"params": {
+        "ObsEncoder_0": _encoder_to_flax(sd),
+        "OptimizedLSTMCell_0": cell,
+        "Dense_0": _dense_to_flax(sd, "policy."),
+        "Dense_1": _dense_to_flax(sd, "value."),
+    }})
+
+
+def _dense_from_flax(leaf: dict, prefix: str) -> dict:
+    return {prefix + "weight": leaf["kernel"].T, prefix + "bias": leaf["bias"]}
+
+
+def _encoder_from_flax(enc: dict) -> tuple[dict, dict]:
+    """(state dict entries, encoder sizes) of a flax ``ObsEncoder_0``."""
+    sd = {f"encoder.{name}.weight": enc[f"Embed_{i}"]["embedding"]
+          for i, name in enumerate(_EMBEDS)}
+    convs = []
+    while f"Conv_{len(convs)}" in enc:
+        i = len(convs)
+        kernel = enc[f"Conv_{i}"]["kernel"]
+        sd[f"encoder.convs.{i}.weight"] = kernel.transpose(3, 2, 0, 1)
+        sd[f"encoder.convs.{i}.bias"] = enc[f"Conv_{i}"]["bias"]
+        convs.append(kernel.shape[3])
+    sd.update(_dense_from_flax(enc["Dense_0"], "encoder.dense."))
+    embed_dim = enc["Embed_0"]["embedding"].shape[1]
+    rows, hidden = enc["Dense_0"]["kernel"].shape
+    view = int(round(((rows - 2 * embed_dim) / convs[-1]) ** 0.5))
+    if view * view * convs[-1] + 2 * embed_dim != rows:
+        raise ValueError(f"ObsEncoder_0/Dense_0 has {rows} input rows: not a square view")
+    return sd, {"embed_dim": embed_dim, "conv_features": tuple(convs), "hidden": hidden,
+                "view": view}
+
+
+def _load(net, sd: dict, view: int, device):
+    net.build(view)
+    net.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                         for k, v in sd.items()})
+    return net.to(resolve_device(device))
+
+
+def actor_critic_from_flax(tree: dict, dtype: torch.dtype = torch.bfloat16, device=None):
+    """The flax tree of ``minigrid_tpu.rl.ActorCritic`` -> a built port
+    ``ActorCritic`` computing in ``dtype`` on ``device`` (CUDA unless
+    named), its sizes read from the tree."""
+    from minigrid_tpu_torch.rl.networks import ActorCritic
+
+    params = tree.get("params", tree)
+    sd, sizes = _encoder_from_flax(params["ObsEncoder_0"])
+    sd.update(_dense_from_flax(params["Dense_0"], "dense."))
+    sd.update(_dense_from_flax(params["Dense_1"], "policy."))
+    sd.update(_dense_from_flax(params["Dense_2"], "value."))
+    net = ActorCritic(num_actions=params["Dense_1"]["kernel"].shape[1],
+                      embed_dim=sizes["embed_dim"], conv_features=sizes["conv_features"],
+                      hidden=sizes["hidden"], dtype=dtype)
+    return _load(net, sd, sizes["view"], device)
+
+
+def recurrent_from_flax(tree: dict, dtype: torch.dtype = torch.bfloat16, device=None):
+    """The flax tree of ``minigrid_tpu.rl.RecurrentActorCritic`` -> a built
+    port ``RecurrentActorCritic`` in ``dtype`` on ``device``."""
+    from minigrid_tpu_torch.rl.rnn import RecurrentActorCritic
+
+    params = tree.get("params", tree)
+    sd, sizes = _encoder_from_flax(params["ObsEncoder_0"])
+    cell = params["OptimizedLSTMCell_0"]
+    sd["cell.weight_ih"] = np.concatenate([cell["i" + g]["kernel"].T for g in _GATES])
+    sd["cell.weight_hh"] = np.concatenate([cell["h" + g]["kernel"].T for g in _GATES])
+    sd["cell.bias_hh"] = np.concatenate([cell["h" + g]["bias"] for g in _GATES])
+    sd.update(_dense_from_flax(params["Dense_0"], "policy."))
+    sd.update(_dense_from_flax(params["Dense_1"], "value."))
+    net = RecurrentActorCritic(num_actions=params["Dense_0"]["kernel"].shape[1],
+                               hidden=sizes["hidden"], embed_dim=sizes["embed_dim"],
+                               conv_features=sizes["conv_features"], dtype=dtype)
+    return _load(net, sd, sizes["view"], device)

@@ -652,3 +652,18 @@ def test_pov_render_batch_on_the_card_matches_the_cpu(cuda, channels_first):
     want = render.pov_render_batch(cpu, p, render.get_atlas(8, "cpu"), channels_first)
     assert got.is_contiguous() and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
+
+
+# -- the learner on the card ----------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ppo", "rnn", "bc"])
+def test_learner_on_the_card_matches_the_cpu(cuda, kind):
+    """``chip_smoke.py`` phase 4g (a): one small PPO update (DoorKey-8x8),
+    RecurrentPPO update (MemoryS7) or ``bc_train`` run on the card and on the
+    CPU from one key, float32 networks, TF32 off: the rollouts equal, values,
+    metrics and parameters within the CPU tests' tolerances."""
+    import chip_smoke
+
+    errs = chip_smoke.learner_card_matches_cpu(cuda, (kind,))[kind]
+    assert errs["param"] < 0.1 * 1e-3
