@@ -117,6 +117,23 @@ printing a result:
    ``examples/train_rnn_ppo.py``'s config (B=512, T=256, 4 x 4); and
    ``bc_train`` at ``BCConfig``'s defaults on 1024 x 8 pairs of a rollout
    of the trained policy (its loss must fall), then ``evaluate_policy``;
+
+   then (phase 4h) the multi-device layer, on ranks spawned by
+   ``parallel/multihost.spawn``: two ranks share the card under gloo (NCCL
+   refuses two ranks on one card) and run ``ShardedVectorEnv`` on
+   DoorKey-8x8 at B=4096 (2 x 2048) pooled 64/8 for 64 steps of 16-step
+   episodes, every step's rows and the final state bitwise the unsharded
+   card run's, ``obs_gather`` launched on every rank every step (counted
+   per rank); ``sharded_rollout``'s totals against the unsharded
+   ``rollout``; ``dp=2`` PPO at ``examples/train_ppo.py``'s width (update 1
+   against the unsharded update 1: 99 % of the actions equal, entropy
+   within 1 %, metrics equal on every rank; update 2 timed by phase; the
+   gradient all-reduce timed in a third; peak memory per rank); the small
+   float32 update over ``dp=1 x tp=2`` against the unsharded one at the
+   card == CPU tolerances; then one rank on an NCCL group runs PPO at the
+   same width with no host sync in its second update beyond the per-epoch
+   count reads (asserted under ``torch.cuda.set_sync_debug_mode``), and
+   ``tools/bench_sharded`` runs with the one rank the card holds;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
@@ -315,6 +332,21 @@ BC_EVAL_EPISODES, BC_EVAL_STEPS = 2, 16
 LEARNER_VALUE_ATOL = 1e-5
 LEARNER_METRIC_RTOL = 1e-4
 LEARNER_PARAM_REL_L2 = 1e-2
+
+# phase 4h: the multi-device layer on one card.  Two ranks share it under
+# gloo (NCCL refuses two ranks on one card); one NCCL rank runs once.
+MESH_RANKS = 2
+MESH_STEPS = 64  # the ShardedVectorEnv walk, pooled POOL_REFILL/REFILL_PERIOD
+MESH_EPISODE = 16  # its max_steps: four waves of auto-resets in the walk
+MESH_UPDATES = 2  # dp=2 PPO at LEARNER: the first held against the unsharded, the second timed
+# the dp=2 bf16 update against the unsharded one: the draw is exact, but a
+# rank's bf16 logits over 512 rows may round apart from the unsharded 1024
+# rows' (bf16 logits lie within 2.1e-3 of the float32 ones), so a Gumbel-max
+# near a tie can flip and the trajectories part there; the float32 tp run
+# carries exactness
+MESH_ACTION_AGREEMENT = 0.99  # least fraction of equal actions in update 1
+MESH_ENTROPY_RTOL = 1e-2  # update 1's entropy against the unsharded
+MESH_BENCH_STEPS = 64  # tools/bench_sharded, one rank
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -1590,13 +1622,13 @@ def drive_wrappers(dev, counters: dict, card: str) -> dict:
 
 # -- phase 4g: the learner --------------------------------------------------------
 
-def learner_small_run(dev, kind: str) -> dict:
+def learner_small_run(dev, kind: str, mesh=None) -> dict:
     """One small learner run of ``kind`` on ``dev`` with a float32 network
     from one key: ``ppo`` (one PPO update on DoorKey-8x8 at a 10-step limit,
-    its rollout kept), ``rnn`` (one RecurrentPPO update on MemoryS7 at a
-    6-step limit) or ``bc`` (``bc_train`` on a numpy dataset).  Returns the
-    trajectory, the metrics and the parameters before (PPO) and after it, on
-    the CPU."""
+    its rollout kept; over ``mesh`` when given), ``rnn`` (one RecurrentPPO
+    update on MemoryS7 at a 6-step limit) or ``bc`` (``bc_train`` on a numpy
+    dataset).  Returns the trajectory, the metrics and the parameters before
+    (PPO) and after it (this rank's slices over a mesh), on the CPU."""
     import numpy as np
 
     import minigrid_tpu_torch
@@ -1604,11 +1636,11 @@ def learner_small_run(dev, kind: str) -> dict:
     from minigrid_tpu_torch.core import rng
 
     cfg = rl.PPOConfig(**LEARNER_SMALL)
-    traj = {}
+    traj, placement = {}, None
     if kind in ("ppo", "rnn"):
         if kind == "ppo":
             env = minigrid_tpu_torch.make(ENV_ID, max_steps=LEARNER_SMALL_LIMIT)
-            trainer = rl.PPO(env, None, cfg, device=dev, network=rl.ActorCritic(
+            trainer = rl.PPO(env, None, cfg, device=dev, mesh=mesh, network=rl.ActorCritic(
                 env.num_actions, dtype=torch.float32))
         else:
             env = minigrid_tpu_torch.make(RNN_LEARNER, max_steps=RNN_SMALL_LIMIT)
@@ -1621,6 +1653,7 @@ def learner_small_run(dev, kind: str) -> dict:
         _, traj = trainer.rollout(runner)
         runner, metrics = trainer.update(runner)
         model, lr = runner.train_state.model, cfg.lr
+        placement = getattr(trainer, "param_placement", None)
     else:
         r = np.random.default_rng(0)
         image = np.stack([r.integers(0, 11, (96, 7, 7)), r.integers(0, 6, (96, 7, 7)),
@@ -1642,6 +1675,7 @@ def learner_small_run(dev, kind: str) -> dict:
                 for k, v in tree.items()}
 
     return {"traj": cpu(traj), "metrics": cpu(metrics), "lr": lr, "init": init,
+            "placement": placement,
             "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
 
 
@@ -1959,6 +1993,439 @@ def drive_learner(dev, counters: dict, card: str) -> dict:
     return out
 
 
+# -- phase 4h: the multi-device layer ------------------------------------------------
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rank_start(device: str) -> torch.device:
+    """A rank's device.  On the CPU (a rehearsal of the phase, where no
+    kernel can launch) the plain gathers count as the kernel's launches."""
+    from minigrid_tpu_torch.ops import obs_gather
+
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        plain = obs_gather.gather_view_plain
+
+        def counted(*args):
+            obs_gather.LAUNCHES += 1
+            return plain(*args)
+
+        obs_gather.gather_view = counted
+    return dev
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    m = hashlib.sha256()
+    for t in tensors:
+        m.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return m.hexdigest()
+
+
+def _walk_digest(obs: dict, reward, term, trunc, rows=slice(None)) -> str:
+    return _digest(*(obs[k][rows] for k in ("image", "direction", "mission")),
+                   reward[rows].view(torch.int32), term[rows], trunc[rows])
+
+
+def _local_ring(state, lo: int, hi: int, num_envs: int):
+    """The rows and ring slots of ``[lo, hi)`` of an unsharded pooled state,
+    in a rank's local layout, with the counters zeroed (a rank counts its own
+    resets)."""
+    from minigrid_tpu_torch.core.state import map_fields
+
+    def ring(x):
+        return torch.cat([x[lo:hi], x[num_envs + lo:num_envs + hi]])
+
+    zero = torch.zeros_like(state.n_fresh)
+    return state.replace(envs=map_fields(lambda x: x[lo:hi], state.envs),
+                         pool=map_fields(ring, state.pool), fresh=ring(state.fresh),
+                         n_fresh=zero, n_stale=zero)
+
+
+def mesh_sizes() -> dict:
+    """Phase 4h's sizes, handed to the ranks (a fresh process each)."""
+    return {"num_envs": NUM_ENVS, "steps": MESH_STEPS, "episode": MESH_EPISODE,
+            "pool_refill": POOL_REFILL, "period": REFILL_PERIOD, "learner": LEARNER,
+            "updates": MESH_UPDATES, "ranks": MESH_RANKS}
+
+
+def mesh_walk(venv, key, steps: int, period: int, rows=None) -> tuple[list, object]:
+    """``steps`` pooled steps (consume, then a bulk refill of ``period``
+    windows every ``period`` steps) from ``split(key)``; returns each step's
+    digest (of the whole batch, or of each ``rows`` slice) and the final
+    state."""
+    from minigrid_tpu_torch.core import rng
+
+    key, k_reset = rng.split(key).unbind(0)
+    _, state = venv.reset(k_reset)
+    keys = rng.split(key, steps)
+    shard = (venv.lo, venv.hi)
+    digests = []
+    for t in range(steps):
+        action = rng.randint(keys[t], (venv.num_envs,), 0, venv.env.num_actions, rows=shard)
+        obs, state, reward, term, trunc, _ = venv.step_nofill(state, action)
+        if (t + 1) % period == 0:
+            state = venv.refill(state, period)
+        if rows is not None:
+            digests.append([_walk_digest(obs, reward, term, trunc, r) for r in rows])
+        else:
+            digests.append(_walk_digest(obs, reward, term, trunc))
+    return digests, state
+
+
+def _rank_env_walk(device: str, sz: dict) -> dict:
+    """Phase 4h (a) on one rank: the ShardedVectorEnv walk, its launches."""
+    import torch.distributed as dist
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.ops import obs_gather
+    from minigrid_tpu_torch.parallel.sharding import ShardedVectorEnv
+    from minigrid_tpu_torch.utils.checkpoint import state_hash
+
+    dev = _rank_start(device)
+    env = minigrid_tpu_torch.make(ENV_ID, max_steps=sz["episode"])
+    venv = ShardedVectorEnv(env, sz["num_envs"], device=dev, reset_strategy="pooled",
+                            pool_refill=sz["pool_refill"])
+    _sync(dev)
+    obs_gather.LAUNCHES = 0
+    t0 = time.perf_counter()
+    digests, state = mesh_walk(venv, rng.PRNGKey(11, dev), sz["steps"], sz["period"])
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = obs_gather.LAUNCHES
+    zero = torch.zeros_like(state.n_fresh)
+    return {"rank": dist.get_rank(), "shard": venv.shard, "digests": digests,
+            "state_hash": state_hash(state.replace(n_fresh=zero, n_stale=zero)),
+            "ring": venv.ring_counts(state), "tick": int(state.tick),
+            "launches": launches, "seconds": seconds}
+
+
+def _rank_rollout(device: str, sz: dict) -> dict:
+    """Phase 4h (b) on one rank: ``sharded_rollout``'s totals and launches."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.ops import obs_gather
+    from minigrid_tpu_torch.parallel.sharding import sharded_rollout
+
+    dev = _rank_start(device)
+    env = minigrid_tpu_torch.make(ENV_ID, max_steps=sz["episode"])
+    _sync(dev)
+    obs_gather.LAUNCHES = 0
+    totals = sharded_rollout(env, None, rng.PRNGKey(12, dev), sz["num_envs"], sz["steps"],
+                             device=dev)
+    return {"totals": totals, "launches": obs_gather.LAUNCHES}
+
+
+def _timed_all_reduce(dev, seconds: list):
+    """``rl.ppo.reduce_gradients`` with the device synced around it, its
+    seconds added to ``seconds[0]``: the gradient all-reduce's share of
+    optimize (the syncs slow the update they watch: a separate update)."""
+    from minigrid_tpu_torch.rl import ppo
+
+    inner = ppo.reduce_gradients
+
+    def timed(*args):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner(*args)
+        _sync(dev)
+        seconds[0] += time.perf_counter() - t0
+        return out
+
+    return inner, timed
+
+
+def ppo_phases(trainer, runner, dev) -> tuple:
+    """One update timed by phase (rollout, GAE, optimize): (runner, traj,
+    metrics, seconds)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    runner, traj = trainer.rollout(runner)
+    _sync(dev)
+    t1 = time.perf_counter()
+    batch = trainer.advantages(runner, traj)
+    _sync(dev)
+    t2 = time.perf_counter()
+    runner, metrics = trainer.optimize(runner, batch)
+    _sync(dev)
+    t3 = time.perf_counter()
+    return runner, traj, metrics, {"rollout_s": t1 - t0, "gae_s": t2 - t1,
+                                   "optimize_s": t3 - t2, "update_s": t3 - t0}
+
+
+def _rank_ppo(device: str, sz: dict, watch_syncs: bool) -> dict:
+    """Phase 4h (c) and (e) on one rank: ``PPO(mesh=pod_mesh())`` at
+    LEARNER's width, ``sz["updates"]`` updates timed by phase with the launch count
+    zeroed before each, then one more with the gradient all-reduce timed.
+    With ``watch_syncs`` the second update runs under
+    ``torch.cuda.set_sync_debug_mode`` and its host syncs are returned."""
+    import warnings
+
+    import torch.distributed as dist
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch import rl
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.ops import obs_gather
+    from minigrid_tpu_torch.parallel.multihost import pod_mesh
+    from minigrid_tpu_torch.rl import ppo
+
+    dev = _rank_start(device)
+    env = minigrid_tpu_torch.make(ENV_ID)
+    updates = sz["updates"]
+    cfg = rl.PPOConfig(**sz["learner"], num_updates=updates + 1)
+    trainer = rl.PPO(env, None, cfg, device=dev, mesh=pod_mesh(tp=1))
+    runner = trainer.init(rng.PRNGKey(0, dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rows, first_actions, syncs = [], None, None
+    for u in range(updates):
+        _sync(dev)
+        obs_gather.LAUNCHES = 0
+        watch = watch_syncs and u == 1 and dev.type == "cuda"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if watch:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runner, traj, metrics, seconds = ppo_phases(trainer, runner, dev)
+            finally:
+                if watch:
+                    torch.cuda.set_sync_debug_mode(0)
+        if watch:  # the mode's own notice ("... is a prototype feature") is no sync
+            syncs = [str(w.message).splitlines()[0] for w in caught
+                     if "called a synchronizing" in str(w.message)]
+        if u == 0:
+            first_actions = traj["action"]
+        rows.append({**seconds, "launches": obs_gather.LAUNCHES,
+                     "metrics": {k: float(v) for k, v in metrics.items()}})
+    reduce_s = [0.0]
+    inner, ppo.reduce_gradients = _timed_all_reduce(dev, reduce_s)
+    try:
+        runner, _, _, seconds = ppo_phases(trainer, runner, dev)
+    finally:
+        ppo.reduce_gradients = inner
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(), "rows": rows,
+            "shard": (trainer.venv.lo, trainer.venv.hi), "first_actions": first_actions,
+            "syncs": syncs, "all_reduce_s": reduce_s[0], "timed_optimize_s":
+            seconds["optimize_s"], "peak_bytes": peak, "steps": runner.train_state.step}
+
+
+def _rank_tp_small(device: str, sz: dict) -> dict:
+    """Phase 4h (d) on one rank: the small float32 update over ``dp=1 x
+    tp=2``, TF32 off; this rank's parameter slices and their placement."""
+    from minigrid_tpu_torch.parallel.multihost import pod_mesh
+
+    dev = _rank_start(device)
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return learner_small_run(dev, "ppo", mesh=pod_mesh(tp=sz["ranks"]))
+
+
+def _rank_mesh_phase(device: str, sz: dict) -> dict:
+    """Everything phase 4h runs on the ranks that share the card."""
+    return {"walk": _rank_env_walk(device, sz), "rollout": _rank_rollout(device, sz),
+            "ppo": _rank_ppo(device, sz, watch_syncs=False), "tp": _rank_tp_small(device, sz)}
+
+
+def drive_multi_device(dev, card: str) -> dict:
+    """Phase 4h: (a) ``ShardedVectorEnv`` on MESH_RANKS gloo ranks sharing
+    the card, DoorKey-8x8 at B=NUM_ENVS pooled POOL_REFILL/REFILL_PERIOD for
+    MESH_STEPS steps at MESH_EPISODE-step episodes, every step's rows and the
+    final state bitwise the unsharded card run's, ``obs_gather`` launched on
+    every rank every step; (b) ``sharded_rollout``'s totals against the
+    unsharded ``rollout``; (c) ``dp=2`` PPO at LEARNER's width, update 1
+    against the unsharded update 1 (MESH_ACTION_AGREEMENT,
+    MESH_ENTROPY_RTOL), update 2 timed by phase, the gradient all-reduce
+    timed in a third, peak memory per rank; (d) the small float32 update over
+    ``dp=1 x tp=2`` against the unsharded one at the card == CPU tolerances;
+    (e) one rank on an NCCL group: PPO at LEARNER's width, no host sync in
+    its second update but the per-epoch count reads; (f)
+    ``tools/bench_sharded`` with one rank.  Returns what PERF.md reads."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch import rl
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.parallel.multihost import spawn
+    from minigrid_tpu_torch.parallel.vector import VectorEnv, rollout
+    from minigrid_tpu_torch.tools import bench_sharded
+    from minigrid_tpu_torch.utils.checkpoint import state_hash
+    from minigrid_tpu_torch.utils.convert import unshard_params
+
+    out = {"seconds": {}}
+    device = str(dev)
+    t0 = time.perf_counter()
+    ranks = spawn(_rank_mesh_phase, MESH_RANKS, (device, mesh_sizes()), backend="gloo")
+    out["seconds"]["gloo ranks"] = time.perf_counter() - t0
+    b = NUM_ENVS // MESH_RANKS
+    shards = [(r * b, (r + 1) * b) for r in range(MESH_RANKS)]
+
+    # (a) the walk against the unsharded one
+    env = minigrid_tpu_torch.make(ENV_ID, max_steps=MESH_EPISODE)
+    venv = VectorEnv(env, NUM_ENVS, reset_strategy="pooled", pool_refill=POOL_REFILL,
+                     device=dev)
+    digests, state = mesh_walk(venv, rng.PRNGKey(11, dev), MESH_STEPS, REFILL_PERIOD,
+                               [slice(lo, hi) for lo, hi in shards])
+    for r, rank in enumerate(ranks):
+        walk = rank["walk"]
+        if tuple(walk["shard"]) != shards[r]:
+            raise AssertionError(f"rank {r} holds rows {walk['shard']}")
+        bad = [t for t in range(MESH_STEPS) if walk["digests"][t] != digests[t][r]]
+        if bad:
+            raise AssertionError(f"rank {r}'s rows differ from the unsharded walk at steps "
+                                 f"{bad[:5]}")
+        if walk["state_hash"] != state_hash(_local_ring(state, *shards[r], NUM_ENVS)):
+            raise AssertionError(f"rank {r}'s final state differs from the unsharded one")
+        if (tuple(walk["ring"]) != (int(state.n_fresh), int(state.n_stale))
+                or walk["tick"] != int(state.tick)):
+            raise AssertionError(f"rank {r}: ring {walk['ring']} tick {walk['tick']}, "
+                                 f"unsharded {int(state.n_fresh)}, {int(state.n_stale)}, "
+                                 f"{int(state.tick)}")
+        if walk["launches"] != MESH_STEPS + 1:  # one an observation, the reset's too
+            raise AssertionError(f"rank {r}: obs_gather launched {walk['launches']} times "
+                                 f"in a reset and {MESH_STEPS} steps")
+    n_fresh, n_stale = int(state.n_fresh), int(state.n_stale)
+    if n_fresh + n_stale < NUM_ENVS:
+        raise AssertionError(f"only {n_fresh + n_stale} auto-resets in the walk")
+    out["walk"] = {"seconds": [r["walk"]["seconds"] for r in ranks],
+                   "launches": [r["walk"]["launches"] for r in ranks],
+                   "n_fresh": n_fresh, "n_stale": n_stale}
+    log(f"  (a) ShardedVectorEnv {ENV_ID} B={NUM_ENVS} on {MESH_RANKS} gloo ranks sharing "
+        f"the card ({b} envs each), pooled {POOL_REFILL}/{REFILL_PERIOD}, max_steps "
+        f"{MESH_EPISODE}: {MESH_STEPS} steps bitwise the unsharded card run (every step's "
+        f"rows, the final state), auto-resets fresh {n_fresh} stale {n_stale} summed over "
+        f"the ranks, tick {int(state.tick)}; obs_gather launches per rank "
+        f"{out['walk']['launches']}; walk seconds per rank "
+        f"{[round(s, 3) for s in out['walk']['seconds']]} (digests included) [{card}]")
+
+    # (b) sharded_rollout against the unsharded rollout
+    _, traj = rollout(env, None, rng.PRNGKey(12, dev), NUM_ENVS, MESH_STEPS, device=dev)
+    want = (NUM_ENVS * MESH_STEPS, float(traj["reward"].double().sum()),
+            int((traj["terminated"] | traj["truncated"]).sum()))
+    for r, rank in enumerate(ranks):
+        steps, reward, dones = rank["rollout"]["totals"]
+        if (steps, dones) != (want[0], want[2]) or abs(reward - want[1]) > 1e-3:
+            raise AssertionError(f"rank {r}: sharded_rollout {rank['rollout']['totals']}, "
+                                 f"unsharded {want}")
+        if rank["rollout"]["launches"] != MESH_STEPS + 1:
+            raise AssertionError(f"rank {r}: sharded_rollout launched obs_gather "
+                                 f"{rank['rollout']['launches']} times")
+    out["rollout"] = {"totals": ranks[0]["rollout"]["totals"],
+                      "launches": [r["rollout"]["launches"] for r in ranks]}
+    log(f"  (b) sharded_rollout B={NUM_ENVS} T={MESH_STEPS} on {MESH_RANKS} ranks: "
+        f"{ranks[0]['rollout']['totals']} on every rank, unsharded {want}; obs_gather "
+        f"launches per rank {out['rollout']['launches']} [{card}]")
+
+    # (c) dp=2 PPO at full width against the unsharded update 1
+    t_c = time.perf_counter()
+    trainer = rl.PPO(minigrid_tpu_torch.make(ENV_ID), None,
+                     rl.PPOConfig(**LEARNER, num_updates=MESH_UPDATES + 1), device=dev)
+    runner = trainer.init(rng.PRNGKey(0, dev))
+    _, traj, metrics, base = ppo_phases(trainer, runner, dev)
+    base_metrics = finite_metrics(metrics, "unsharded update 1")
+    got_actions = torch.cat([torch.as_tensor(r["ppo"]["first_actions"]) for r in ranks], 1)
+    agree = float((got_actions == traj["action"].cpu()).float().mean())
+    rows = [r["ppo"]["rows"] for r in ranks]
+    for r, rank_rows in enumerate(rows):
+        for u, row in enumerate(rank_rows):
+            finite_metrics(row["metrics"], f"dp=2 rank {r} update {u + 1}")
+            if row["metrics"] != rows[0][u]["metrics"]:
+                raise AssertionError(f"update {u + 1}: rank {r} reports other metrics")
+            if row["launches"] != 2 * LEARNER["num_steps"]:
+                raise AssertionError(f"rank {r} update {u + 1}: obs_gather launched "
+                                     f"{row['launches']} times")
+    entropy = rows[0][0]["metrics"]["entropy"]
+    if (agree < MESH_ACTION_AGREEMENT
+            or abs(entropy - base_metrics["entropy"]) > MESH_ENTROPY_RTOL * abs(
+                base_metrics["entropy"])):
+        raise AssertionError(f"dp=2 update 1: {agree:.4f} of the actions agree, entropy "
+                             f"{entropy} against {base_metrics['entropy']}")
+    rel = {k: abs(rows[0][0]["metrics"][k] - v) / max(abs(v), 1e-6)
+           for k, v in base_metrics.items()}
+    timed = [rank_rows[-1] for rank_rows in rows]
+    out["ppo"] = {"unsharded": base, "rows": rows, "agreement": agree, "metric_rel": rel,
+                  "peak_bytes": [r["ppo"]["peak_bytes"] for r in ranks],
+                  "all_reduce_s": [r["ppo"]["all_reduce_s"] for r in ranks],
+                  "timed_optimize_s": [r["ppo"]["timed_optimize_s"] for r in ranks]}
+    out["seconds"]["unsharded update"] = time.perf_counter() - t_c
+    log(f"  (c) PPO {ENV_ID} B={LEARNER['num_envs']} T={LEARNER['num_steps']} "
+        f"{LEARNER['update_epochs']}x{LEARNER['num_minibatches']} bf16, dp={MESH_RANKS} "
+        f"(gloo, one card): update 1 {agree:.4f} of the actions equal to the unsharded "
+        f"update's, metrics equal on every rank, relative differences "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; update {MESH_UPDATES} per "
+        f"rank: " + "; ".join(
+            f"{t['update_s']:.3f} s (rollout {t['rollout_s']:.3f}, GAE {t['gae_s']:.4f}, "
+            f"optimize {t['optimize_s']:.3f})" for t in timed)
+        + f"; the unsharded update 1 {base['update_s']:.3f} s (rollout "
+        f"{base['rollout_s']:.3f}, GAE {base['gae_s']:.4f}, optimize "
+        f"{base['optimize_s']:.3f}); gradient all-reduce (gloo) "
+        f"{[round(s, 4) for s in out['ppo']['all_reduce_s']]} s of optimize "
+        f"{[round(s, 3) for s in out['ppo']['timed_optimize_s']]} s in a third, synced "
+        f"update; obs_gather {rows[0][-1]['launches']} launches per rank an update; peak "
+        f"memory per rank {[round(p / 2**20, 1) for p in out['ppo']['peak_bytes']]} MiB "
+        f"[{card}]")
+
+    # (d) dp=1 x tp=2, small and float32, against the unsharded run
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want_small = learner_small_run(dev, "ppo")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    tp_ranks = [r["tp"] for r in ranks]
+    got_small = dict(tp_ranks[0])
+    got_small["params"] = unshard_params(
+        [{n: torch.as_tensor(v) for n, v in r["params"].items()} for r in tp_ranks],
+        [r["placement"] for r in tp_ranks])
+    got_small["traj"] = {k: ({n: torch.as_tensor(a) for n, a in v.items()}
+                             if isinstance(v, dict) else torch.as_tensor(v))
+                         for k, v in got_small["traj"].items()}
+    got_small["metrics"] = {k: torch.as_tensor(v) for k, v in got_small["metrics"].items()}
+    sharded = sorted(n for n, s in tp_ranks[0]["placement"].items() if s is not None)
+    errs = compare_learner_runs(got_small, want_small, "dp=1 x tp=2")
+    out["tp"] = {"errors": errs, "sharded": sharded}
+    log(f"  (d) the small float32 PPO update over dp=1 x tp={MESH_RANKS} (gloo, one card, "
+        f"TF32 off) against the unsharded one: rollouts equal, largest errors {errs}; "
+        f"{len(sharded)} of {len(tp_ranks[0]['placement'])} parameters sharded [{card}]")
+
+    # (e) one rank on an NCCL group
+    t0 = time.perf_counter()
+    nccl = spawn(_rank_ppo, 1, (device, {**mesh_sizes(), "updates": 2}, True),
+                 backend="nccl" if dev.type == "cuda" else "gloo")[0]
+    out["seconds"]["nccl rank"] = time.perf_counter() - t0
+    syncs = nccl["syncs"] or []
+    if dev.type == "cuda" and len(syncs) != LEARNER["update_epochs"]:
+        raise AssertionError(f"the NCCL update read the device {len(syncs)} times, expected "
+                             f"{LEARNER['update_epochs']} (the per-epoch counts): "
+                             f"{syncs[:6]}")
+    out["nccl"] = nccl
+    row = nccl["rows"][-1]
+    log(f"  (e) PPO at the same width on a one-rank {nccl['backend']} group: update 2 "
+        f"{row['update_s']:.3f} s (rollout {row['rollout_s']:.3f}, GAE {row['gae_s']:.4f}, "
+        f"optimize {row['optimize_s']:.3f}), {len(syncs)} host syncs in it (the per-epoch "
+        f"count reads); gradient all-reduce {nccl['all_reduce_s']:.4f} s of optimize "
+        f"{nccl['timed_optimize_s']:.3f} s in a third, synced update; peak memory "
+        f"{nccl['peak_bytes'] / 2**20:.1f} MiB [{card}]")
+
+    # (f) the weak-scaling sweep with the ranks this host holds
+    t0 = time.perf_counter()
+    sweep = bench_sharded.sweep(ENV_ID, [1, 2], NUM_ENVS, MESH_BENCH_STEPS, verbose=False,
+                                device=dev.type)
+    out["bench_sharded"] = sweep
+    out["seconds"]["bench_sharded"] = time.perf_counter() - t0
+    if [r["n_devices"] for r in sweep][:1] != [1]:
+        raise AssertionError(f"bench_sharded rows {sweep}")
+    log(f"  (f) tools/bench_sharded {ENV_ID} {NUM_ENVS} envs/device x {MESH_BENCH_STEPS} "
+        f"steps: {sweep} ({bench_sharded.available(dev.type)} device(s) here) [{card}]")
+    log(f"  phase 4h seconds: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -2119,6 +2586,11 @@ def main() -> int:
     t0 = time.perf_counter()
     drive_learner(dev, counters, card)
     log(f"  the learner phase took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4h: the multi-device layer")
+    t0 = time.perf_counter()
+    drive_multi_device(dev, card)
+    log(f"  the multi-device phase took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)

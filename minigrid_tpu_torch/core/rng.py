@@ -73,21 +73,33 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
-def _hash_iota(keys: torch.Tensor, shape: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+def _hash_iota(keys: torch.Tensor, shape: tuple,
+               rows: tuple[int, int] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """threefry over the iota counters (0, i) of ``shape`` for each key:
-    ``[..., 2]`` keys -> two ``[..., *shape]`` word tensors."""
+    ``[..., 2]`` keys -> two ``[..., *shape]`` word tensors.  With ``rows =
+    (lo, hi)`` only the rows ``[lo, hi)`` of the first dim of ``shape``
+    are hashed: the same words as those rows of the whole draw."""
     n = math.prod(shape)
     if n >= 1 << 32:
         raise ValueError("random draws above 2^32 values need the high counter")
-    lo = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(shape)
+    if rows is None:
+        rows = (0, shape[0]) if shape else (0, 1)
+    lo_row, hi_row = rows
+    if not 0 <= lo_row <= hi_row <= (shape[0] if shape else 1):
+        raise ValueError(f"rows {rows} outside the draw's first dim of {shape}")
+    inner = math.prod(shape[1:])
+    shape = (hi_row - lo_row,) + tuple(shape[1:]) if shape else ()
+    lo = torch.arange(lo_row * inner, hi_row * inner, dtype=torch.int64,
+                      device=keys.device).reshape(shape)
     expand = (...,) + (None,) * len(shape)
     return threefry2x32(keys[..., 0][expand], keys[..., 1][expand],
                         torch.zeros_like(lo), lo)
 
 
-def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``."""
-    b1, b2 = _hash_iota(keys, (num,))
+def split(keys: torch.Tensor, num: int = 2, rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``; with
+    ``rows = (lo, hi)`` the keys ``[lo, hi)`` of the ``num`` alone."""
+    b1, b2 = _hash_iota(keys, (num,), rows)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -106,10 +118,12 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def bits(keys: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+def bits(keys: torch.Tensor, shape: tuple = (),
+         rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``jax.random.bits`` (32-bit): ``[..., 2]`` keys -> int64
-    ``[..., *shape]`` of uint32 values."""
-    b1, b2 = _hash_iota(keys, tuple(shape))
+    ``[..., *shape]`` of uint32 values; with ``rows = (lo, hi)`` the rows
+    ``[lo, hi)`` of the first dim of ``shape`` alone."""
+    b1, b2 = _hash_iota(keys, tuple(shape), rows)
     return b1 ^ b2
 
 
@@ -119,15 +133,19 @@ def _bound_tensor(v, device) -> torch.Tensor:
     return torch.full((), int(v), dtype=torch.int64, device=device)
 
 
-def randint(keys: torch.Tensor, shape: tuple, minval, maxval) -> torch.Tensor:
+def randint(keys: torch.Tensor, shape: tuple, minval, maxval,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``.
 
     ``keys`` is ``[..., 2]``; ``minval``/``maxval`` are int32-range ints or
-    int tensors that broadcast against ``[..., *shape]``.  Returns int32.
-    Int bounds stay on the host: no copy to the device per draw."""
+    int tensors that broadcast against ``[..., *shape]`` (against the rows
+    drawn, with ``rows``).  Returns int32.  ``rows = (lo, hi)`` returns only
+    the rows ``[lo, hi)`` of the first dim of ``shape``, bitwise those rows
+    of the whole draw: a rank's share of a batch-wide draw.  Int bounds stay
+    on the host: no copy to the device per draw."""
     shape = tuple(shape)
     sub = split(keys)  # [..., 2, 2]
-    words = bits(sub, shape)  # [..., 2, *shape]
+    words = bits(sub, shape, rows)  # [..., 2, *shape]
     higher = words.select(-1 - len(shape), 0)
     lower = words.select(-1 - len(shape), 1)
     if isinstance(minval, torch.Tensor) or isinstance(maxval, torch.Tensor):
@@ -169,15 +187,16 @@ _TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def uniform(keys: torch.Tensor, shape: tuple = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``:
-    ``[..., 2]`` keys -> float32 ``[..., *shape]`` in [minval, maxval).
+    ``[..., 2]`` keys -> float32 ``[..., *shape]`` in [minval, maxval)
+    (only the rows ``[lo, hi)`` of its first dim with ``rows``).
 
     The 23 high bits of each word become the mantissa of a float in [1, 2);
     minus 1 that is a multiple of 2^-23 in [0, 1), exact.  Bitwise for the
     ranges the JAX package draws, [0, 1) and [tiny, 1), where the scale is
     exactly 1 and no rounding order can change a bit."""
-    words = bits(keys, tuple(shape))
+    words = bits(keys, tuple(shape), rows)
     floats = (((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
               - 1.0)
     # the bounds and their difference in float32, as JAX converts them
@@ -213,16 +232,28 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor,
     return _gumbel_argmax(u, logits)
 
 
-def categorical_one_key(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical_one_key(key: torch.Tensor, logits: torch.Tensor,
+                        rows: tuple[int, int] | None = None,
+                        num_rows: int | None = None) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` with ONE key ``[2]`` over a
     batch of float32 logits ``[..., n]`` -> int32 ``[...]``: the noise is
     ``uniform(key, logits.shape, tiny, 1)``, one draw over the whole shape,
     as JAX draws it when a single key meets batched logits (the learner's
     action draw, ``minigrid_tpu/rl/ppo.py:346``).  Same Gumbel-max and tie
-    rule as :func:`categorical`."""
+    rule as :func:`categorical`.
+
+    ``rows = (lo, hi)`` with ``num_rows``: ``logits`` ``[hi - lo, n]`` are
+    the rows ``[lo, hi)`` of a ``[num_rows, n]`` batch, and the draw is
+    those rows of the draw over the whole batch, bitwise (a rank's share of
+    a data-parallel rollout)."""
     if key.shape != (2,):
         raise ValueError(f"categorical_one_key takes one key [2], got {tuple(key.shape)}")
-    return _gumbel_argmax(uniform(key, tuple(logits.shape), _TINY, 1.0), logits)
+    shape = tuple(logits.shape)
+    if rows is not None:
+        if logits.dim() != 2 or num_rows is None or rows[1] - rows[0] != shape[0]:
+            raise ValueError(f"rows {rows} of {num_rows} do not match logits {shape}")
+        shape = (num_rows, shape[1])
+    return _gumbel_argmax(uniform(key, shape, _TINY, 1.0, rows), logits)
 
 
 def _gumbel_argmax(u: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,19 @@ fill a ring of ``BonusState``.  The first refill raises ``ValueError``;
 before the auto-reset, as ``info["final_obs"]``.  :func:`rollout` drives B
 envs for T steps and returns the stacked trajectory.
 
+``shard=(lo, hi)`` runs the envs ``[lo, hi)`` of a batch of ``num_envs`` (a
+rank's share of a data-parallel batch, ``parallel/sharding.py``) with the
+global batch's geometry, so that the rows it returns are those rows of the
+unsharded run, bitwise, with no collective: every key is split from a key
+every rank holds, and the rank generates only the levels of the rows and
+ring slots it owns.  The pooled ring keeps its global size 2B and refill
+window; a rank owns the slots ``[lo, hi)`` and ``[B + lo, B + hi)``, held
+locally as its own ``[0, 2b)``, and writes the part of each refill window
+that falls in them (possibly none).  The window's position follows the
+ring's ``tick``, which a refill advances by its window count: the engine
+mirrors it on the host, so a refill reads nothing back.  ``n_fresh`` and
+``n_stale`` then count the rank's own auto-resets.
+
 Every random draw comes from the threefry twin, so a run is bitwise the JAX
 package's run for the same key and actions.
 """
@@ -122,9 +135,13 @@ class VectorEnv:
                  auto_reset: bool = True, final_obs: bool = False,
                  reset_strategy: str | None = None,
                  pool_refill: int | None = None, strict_refill: bool = False,
-                 device=None):
+                 device=None, shard: tuple[int, int] | None = None):
         self.env = env
         self.num_envs = num_envs
+        self.lo, self.hi = shard if shard is not None else (0, num_envs)
+        if not 0 <= self.lo < self.hi <= num_envs:
+            raise ValueError(f"shard {shard} is not a slice of {num_envs} envs")
+        self.local_envs = self.hi - self.lo
         self.params = params if params is not None else env.default_params
         self.device = resolve_device(device)
         self.auto_reset = auto_reset
@@ -144,6 +161,7 @@ class VectorEnv:
         self.pool_refill = pool_refill
         self.best_effort = not strict_refill and reset_strategy == "pooled"
         self.best_effort_refill = self.best_effort and hasattr(env, "generate_attempt")
+        self._tick_mirror: tuple[torch.Tensor, int] | None = None
 
     # -- helpers -----------------------------------------------------------
     def _gen_many(self, keys: torch.Tensor) -> EnvState:
@@ -178,27 +196,36 @@ class VectorEnv:
         return self._obs(new_state), state, reward, terminated, truncated, info
 
     # -- API ---------------------------------------------------------------
+    def _split_rows(self, key: torch.Tensor, num: int, starts) -> torch.Tensor:
+        """This shard's keys of ``split(key, num)``: the rows ``[s + lo, s +
+        hi)`` for each start ``s``, in order."""
+        parts = [rng.split(key, num, (s + self.lo, s + self.hi)) for s in starts]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def reset(self, key: torch.Tensor):
         key = key.to(self.device)
-        b = self.num_envs
+        b, big_b = self.local_envs, self.num_envs
         if not self._pooled:
-            envs = self._gen_many(rng.split(key, b))
+            envs = self._gen_many(self._split_rows(key, big_b, (0,)))
             return self._obs(envs), envs
         _, k_gen, k_refill = rng.split(key, 3).unbind(0)
-        # one generator call covers the envs AND the initial pool fill
-        both = self._gen_many(rng.split(k_gen, b + self.pool_size))
+        # one generator call covers the envs AND the initial pool fill: keys
+        # [0, B) the envs, [B, 3B) the ring's slots
+        both = self._gen_many(self._split_rows(k_gen, big_b + self.pool_size,
+                                               (0, big_b, 2 * big_b)))
         envs = map_fields(lambda x: x[:b], both)
         pool = map_fields(lambda x: x[b:], both)
 
         def scalar():
             return torch.zeros((), dtype=torch.int32, device=self.device)
 
+        tick = scalar()
+        self._tick_mirror = (tick, 0)
         return self._obs(envs), PooledState(
             envs=envs,
             pool=pool,
-            fresh=torch.ones((self.pool_size,), dtype=torch.bool,
-                             device=self.device),
-            tick=scalar(),
+            fresh=torch.ones((2 * b,), dtype=torch.bool, device=self.device),
+            tick=tick,
             key=k_refill,
             n_fresh=scalar(),
             n_stale=scalar(),
@@ -254,7 +281,7 @@ class VectorEnv:
         (strict) a level regenerated from the env's own stream.  Returns
         (new envs, updated freshness flags, fresh consumes, stale
         consumes)."""
-        b = self.num_envs
+        b = self.local_envs
         lo = map_fields(lambda p: p[:b], pool)
         hi = map_fields(lambda p: p[b:], pool)
         f_lo, f_hi = flags[:b], flags[b:]
@@ -291,11 +318,17 @@ class VectorEnv:
             raise ValueError(
                 f"windows*pool_refill={n} must divide the ring size {ring}")
         key, k = rng.split(key).unbind(0)
-        off = (tick * c) % ring // n * n if n < ring else torch.zeros_like(tick)
-        idx = off.to(torch.int64) + torch.arange(n, device=self.device)
+        t = self._host_tick(tick)
+        tick = tick + windows
+        self._tick_mirror = (tick, t + windows)
+        off = (t * c) % ring // n * n if n < ring else 0
+        parts = self._owned_window(off, n)
+        if not parts:  # the window lies wholly in other shards' slots
+            return pool, flags, tick, key
+        keys = torch.cat([rng.split(k, n, (p, p + m)) for p, m, _ in parts])
+        idx = torch.cat([torch.arange(s, s + m, device=self.device) for _, m, s in parts])
         if self.best_effort_refill:
-            cand, ok = self.env.generate_attempt(rng.split(k, n), self.params,
-                                                 self.device)
+            cand, ok = self.env.generate_attempt(keys, self.params, self.device)
             if type(cand) is not type(pool):
                 # as in the JAX package, whose refill fails to trace here
                 raise ValueError(
@@ -308,10 +341,29 @@ class VectorEnv:
             cand = tree_select(ok, cand, map_fields(lambda p: p.index_select(0, idx),
                                                     pool))
         else:
-            cand = self._gen_many(rng.split(k, n))
+            cand = self._gen_many(keys)
         pool = map_fields(lambda p, x: p.index_copy(0, idx, x), pool, cand)
         flags = flags.index_fill(0, idx, True)
-        return pool, flags, tick + windows, key
+        return pool, flags, tick, key
+
+    def _host_tick(self, tick: torch.Tensor) -> int:
+        """The ring's tick on the host: the mirror of the tick this engine
+        last made, else one read of the device (a state made elsewhere, such
+        as a restored checkpoint)."""
+        if self._tick_mirror is not None and self._tick_mirror[0] is tick:
+            return self._tick_mirror[1]
+        return int(tick)
+
+    def _owned_window(self, off: int, n: int) -> list[tuple[int, int, int]]:
+        """The parts of the ring window ``[off, off + n)`` that fall in this
+        shard's slots: (position in the window, length, first local slot)
+        for each, at most one in each half of the ring."""
+        b, parts = self.local_envs, []
+        for base, local in ((self.lo, 0), (self.num_envs + self.lo, b)):
+            s0, s1 = max(off, base), min(off + n, base + b)
+            if s0 < s1:
+                parts.append((s0 - off, s1 - s0, local + s0 - base))
+        return parts
 
 
 def rollout(env: Env, params: EnvParams | None, key: torch.Tensor, num_envs: int,

@@ -22,6 +22,11 @@ arithmetic:
   the policy head ``orthogonal(0.01)`` and the value head
   ``orthogonal(1.0)``.
 
+A Dense, Conv or Embed layer can run column-parallel over a ``tp`` mesh
+axis (``shard_``, called by ``rl/mesh.py::shard_model_``): it keeps its slice
+of the output features (``tp_dim`` of its weight), all-gathers its output
+along the feature dim, and adds its whole bias after the gather.
+
 Like a flax module, a network is built by ``init(key, obs)``: the first dense
 layer's width follows the observation's view size.  The parameters are drawn
 on the CPU from a ``torch.Generator`` seeded from the threefry key, then moved
@@ -41,6 +46,7 @@ from torch import nn
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.step import NUM_ACTIONS
+from minigrid_tpu_torch.rl.mesh import copy_to_tp, gather_from_tp
 
 NUM_TYPES = max(C.OBJECT_TO_IDX.values()) + 1
 NUM_CELL_STATES = 4  # door open/closed/locked + headroom
@@ -81,7 +87,22 @@ def orthogonal_(w: torch.Tensor, gain: float, gen: torch.Generator) -> torch.Ten
 
 # -- layers with flax's casts ------------------------------------------------------
 
-class Dense(nn.Module):
+class _ColumnParallel(nn.Module):
+    """A layer whose weight can be cut to one rank's slice of its output
+    features (dim ``tp_dim``), its output gathered over the ``tp`` axis."""
+
+    tp_dim = 0
+    tp = None  # the tp MeshAxis once sharded
+
+    def shard_(self, tp) -> None:
+        k = self.weight.shape[self.tp_dim] // tp.size
+        local = self.weight.detach().narrow(self.tp_dim, tp.index * k, k).clone()
+        self.weight = nn.Parameter(local)
+        self.weight.tp_sharded = True
+        self.tp = tp
+
+
+class Dense(_ColumnParallel):
     """flax ``nn.Dense``: ``x W^T``, then ``+ b``, with ``x``, ``W`` and
     ``b`` cast to ``dtype`` where used; the product is rounded to ``dtype``
     before the bias is added, as flax adds it.  ``weight`` is ``[out, in]``
@@ -93,7 +114,10 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+        if self.tp is None:
+            return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+        y = F.linear(copy_to_tp(x, self.tp).to(dtype), self.weight.to(dtype))
+        return gather_from_tp(y, self.tp, -1) + self.bias.to(dtype)
 
     def reset_parameters(self, gen: torch.Generator, gain: float | None = None) -> None:
         """``lecun_normal`` kernel, or ``orthogonal(gain)``; zero bias."""
@@ -105,7 +129,7 @@ class Dense(nn.Module):
             self.bias.zero_()
 
 
-class Conv(nn.Module):
+class Conv(_ColumnParallel):
     """flax ``nn.Conv(features, (3, 3), padding="SAME")`` on NCHW input, the
     bias added after the convolution as in :class:`Dense`: ``weight`` is
     OIHW (the flax HWIO kernel permuted)."""
@@ -116,8 +140,11 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return (F.conv2d(x.to(dtype), self.weight.to(dtype), padding=1)
-                + self.bias.to(dtype)[:, None, None])
+        if self.tp is None:
+            return (F.conv2d(x.to(dtype), self.weight.to(dtype), padding=1)
+                    + self.bias.to(dtype)[:, None, None])
+        y = F.conv2d(copy_to_tp(x, self.tp).to(dtype), self.weight.to(dtype), padding=1)
+        return gather_from_tp(y, self.tp, 1) + self.bias.to(dtype)[:, None, None]
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         with torch.no_grad():
@@ -125,15 +152,18 @@ class Conv(nn.Module):
             self.bias.zero_()
 
 
-class Embed(nn.Module):
+class Embed(_ColumnParallel):
     """flax ``nn.Embed``: the table cast to ``dtype``, then the lookup."""
+
+    tp_dim = 1
 
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
 
     def forward(self, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.embedding(idx, self.weight.to(dtype))
+        out = F.embedding(idx, self.weight.to(dtype))
+        return out if self.tp is None else gather_from_tp(out, self.tp, -1)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         with torch.no_grad():

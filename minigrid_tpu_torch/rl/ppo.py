@@ -1,6 +1,6 @@
 """PPO actor-learner on the port's vectorized env.
 
-Counterpart of ``minigrid_tpu/rl/ppo.py`` without the mesh: PPO with GAE,
+Counterpart of ``minigrid_tpu/rl/ppo.py``: PPO with GAE,
 where one update is a rollout of T steps of B envs, advantage estimation (a
 reverse loop over T), and minibatched clipped-objective SGD over epochs x
 minibatches.  The JAX package runs the update as one jitted program; here it
@@ -24,6 +24,12 @@ does (``g / norm * max_norm``) only when the norm reaches ``max_grad_norm``
 multiplies); ``torch.optim.Adam`` takes the step, with the learning rate of
 step k set before it (optax's ``linear_schedule`` from ``lr`` to 0 over every
 optimizer step of the run when ``anneal_lr``).
+
+``PPO(mesh=...)`` runs the update over a ``DeviceMesh`` with a ``dp`` axis
+(and a ``tp`` axis for tensor parallelism): each rank steps its rows of the
+env batch and the gradient is reduced over ``dp`` once a minibatch, with the
+result of the unsharded update up to the order of float sums
+(``rl/mesh.py``).  Every rank reports the same metrics.
 """
 
 from __future__ import annotations
@@ -42,6 +48,14 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.state import EnvParams, resolve_device
 from minigrid_tpu_torch.parallel.vector import VectorEnv
+from minigrid_tpu_torch.rl.mesh import (
+    LearnerMesh,
+    ShardMean,
+    global_grad_norm,
+    reduce_gradients,
+    shard_model_,
+    tp_param_sharding,
+)
 from minigrid_tpu_torch.rl.networks import ActorCritic
 
 
@@ -107,15 +121,26 @@ class EpisodeStats:
             + (done & (reward > 0.0)).sum(dtype=torch.int32),
         )
 
-    def summary(self) -> tuple[dict, "EpisodeStats"]:
+    def summary(self, group=None) -> tuple[dict, "EpisodeStats"]:
         """(the update's episode metrics, the stats with the episode
-        aggregates reset and the per-env running tallies kept)."""
-        safe = torch.clamp(self.episode_count, min=1)
+        aggregates reset and the per-env running tallies kept).  With a
+        process ``group`` (the ``dp`` axis) the aggregates are summed over its
+        ranks first, in one collective: each rank tallies its own envs."""
+        count, ret, length, success = (self.episode_count, self.return_sum,
+                                       self.length_sum, self.success_count)
+        if group is not None:
+            sums = torch.stack([count.double(), ret.double(), length.double(),
+                                success.double()])
+            torch.distributed.all_reduce(sums, group=group)
+            count, ret, length, success = (
+                sums[0].to(count.dtype), sums[1].to(ret.dtype), sums[2].to(length.dtype),
+                sums[3].to(success.dtype))
+        safe = torch.clamp(count, min=1)
         metrics = {
-            "episodes": self.episode_count,
-            "mean_return": self.return_sum / safe,
-            "mean_length": self.length_sum / safe,
-            "success_rate": self.success_count / safe,
+            "episodes": count,
+            "mean_return": ret / safe,
+            "mean_length": length / safe,
+            "success_rate": success / safe,
         }
         return metrics, dataclasses.replace(
             self, episode_count=torch.zeros_like(self.episode_count),
@@ -173,28 +198,36 @@ def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
 
 
 def ppo_objective(logits: torch.Tensor, value: torch.Tensor, batch: dict, clip_eps: float,
-                  ent_coef: float, vf_coef: float) -> tuple[torch.Tensor, dict]:
+                  ent_coef: float, vf_coef: float,
+                  shard: ShardMean | None = None) -> tuple[torch.Tensor, dict]:
     """The clipped PPO objective of the network's ``logits`` and ``value``
     on a minibatch of transitions (any leading shape: ``[N]``, or ``[T, N]``
     for the recurrent learner); returns (loss, detached metrics).  The
     advantage is normalised by its population standard deviation, as
-    ``jnp.std`` computes it."""
+    ``jnp.std`` computes it.  With ``shard`` the transitions are this rank's
+    share of a minibatch split over ``dp``: every mean is this rank's share
+    of the minibatch's (the loss and metrics sum to the minibatch's over
+    the ranks), and the advantage's mean and deviation are the minibatch's."""
+    mean = torch.mean if shard is None else shard.mean
     log_probs = F.log_softmax(logits, dim=-1)
     logp = log_probs.gather(-1, batch["action"].long()[..., None]).squeeze(-1)
 
     ratio = torch.exp(logp - batch["log_prob"])
     adv = batch["advantage"]
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if shard is None:
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    else:
+        adv = shard.normalize(adv)
     pg1 = ratio * adv
     pg2 = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv
-    policy_loss = -torch.minimum(pg1, pg2).mean()
+    policy_loss = -mean(torch.minimum(pg1, pg2))
 
     v_clipped = batch["value"] + torch.clamp(value - batch["value"], -clip_eps, clip_eps)
     vf1 = torch.square(value - batch["target"])
     vf2 = torch.square(v_clipped - batch["target"])
-    value_loss = 0.5 * torch.maximum(vf1, vf2).mean()
+    value_loss = 0.5 * mean(torch.maximum(vf1, vf2))
 
-    entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+    entropy = -mean((torch.exp(log_probs) * log_probs).sum(-1))
 
     loss = policy_loss + vf_coef * value_loss - ent_coef * entropy
     metrics = {
@@ -202,36 +235,41 @@ def ppo_objective(logits: torch.Tensor, value: torch.Tensor, batch: dict, clip_e
         "policy_loss": policy_loss,
         "value_loss": value_loss,
         "entropy": entropy,
-        "approx_kl": ((ratio - 1.0) - torch.log(ratio)).mean(),
+        "approx_kl": mean((ratio - 1.0) - torch.log(ratio)),
     }
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
-def draw_actions(key: torch.Tensor, logits: torch.Tensor):
+def draw_actions(key: torch.Tensor, logits: torch.Tensor,
+                 rows: tuple[int, int] | None = None, num_rows: int | None = None):
     """The rollout's action draw, as the JAX learner makes it: ``key, k_act
     = split(key)``, then one Gumbel-max over all ``[B, A]`` logits from
-    ``k_act``.  Returns (key, action int32[B], its log-probability)."""
+    ``k_act`` (the rows ``[lo, hi)`` of a ``[num_rows, A]`` draw with
+    ``rows``).  Returns (key, action int32[B], its log-probability)."""
     key, k_act = rng.split(key).unbind(0)
-    action = rng.categorical_one_key(k_act, logits)
+    action = rng.categorical_one_key(k_act, logits, rows, num_rows)
     log_prob = F.log_softmax(logits, dim=-1).gather(-1, action.long()[:, None]).squeeze(-1)
     return key, action, log_prob
 
 
 def ppo_loss(model: nn.Module, batch: dict, clip_eps: float, ent_coef: float,
-             vf_coef: float) -> tuple[torch.Tensor, dict]:
-    """Clipped PPO objective on one minibatch of flattened transitions;
-    returns (loss, detached metrics)."""
+             vf_coef: float, shard: ShardMean | None = None) -> tuple[torch.Tensor, dict]:
+    """Clipped PPO objective on one minibatch of flattened transitions (this
+    rank's share of one with ``shard``); returns (loss, detached metrics)."""
     logits, value = model(batch["obs"])
-    return ppo_objective(logits, value, batch, clip_eps, ent_coef, vf_coef)
+    return ppo_objective(logits, value, batch, clip_eps, ent_coef, vf_coef, shard)
 
 
 # -- the optimizer -------------------------------------------------------------------
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: the global norm of the
-    gradients; each rescaled to ``g / norm * max_norm`` where the norm is
-    at least ``max_norm``, left as it is below.  Returns the norm."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    gradients (``norm`` where the caller has it, as a tensor-parallel run
+    does); each rescaled to ``g / norm * max_norm`` where the norm is at
+    least ``max_norm``, left as it is below.  Returns the norm."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -268,17 +306,26 @@ class TrainState:
                                      betas=(0.9, 0.999), eps=eps)
         return TrainState(model, optimizer, schedule, max_grad_norm)
 
-    def apply_gradients(self, loss: torch.Tensor) -> None:
-        """Backpropagate ``loss`` and take one optimizer step."""
+    def apply_gradients(self, loss: torch.Tensor, mesh: LearnerMesh | None = None,
+                        extra: dict | None = None) -> dict | None:
+        """Backpropagate ``loss`` and take one optimizer step.  With ``mesh``
+        the gradients and the scalars of ``extra`` are first summed over its
+        ``dp`` axis (one collective) and the clip reads the norm over its
+        ``tp`` shards; returns the summed ``extra``."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        params = list(self.model.parameters())
+        if mesh is not None:
+            extra = reduce_gradients(params, extra or {}, mesh.dp)
         if self.max_grad_norm is not None:
-            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            grads = [p.grad for p in params if p.grad is not None]
+            clip_by_global_norm_(grads, self.max_grad_norm,
+                                 None if mesh is None else global_grad_norm(params, mesh.tp))
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         self.optimizer.step()
         self.step += 1
+        return extra
 
 
 def ppo_train_state(model: nn.Module, config: PPOConfig) -> TrainState:
@@ -336,18 +383,31 @@ class PPO:
     ``network`` is the module to build and train (a float32 ``ActorCritic``
     for parity checks); ``init`` builds a copy of it, so runners are
     independent.  The model, its optimizer state and the rollout buffers live
-    on ``device`` (CUDA unless named)."""
+    on ``device`` (CUDA unless named).
+
+    ``mesh``, a ``DeviceMesh`` with a ``dp`` axis (``multihost.pod_mesh``):
+    this rank steps its ``num_envs / dp`` rows of the batch, and every rank
+    must call ``init`` with the same key; with a ``tp`` axis the parameters
+    are sharded by :func:`tp_param_sharding`.  The runner then holds this
+    rank's rows and parameter slices, and the metrics are global."""
 
     def __init__(self, env: Env, env_params: EnvParams | None = None,
                  config: PPOConfig | None = None, network: ActorCritic | None = None,
-                 device=None):
+                 device=None, mesh=None):
         self.env = env
         self.env_params = env_params or env.default_params
         self.config = config or PPOConfig()
         self.device = resolve_device(device)
         self.network = network or ActorCritic(num_actions=env.num_actions)
+        self.mesh = mesh
+        self.learner_mesh = None if mesh is None else LearnerMesh.from_mesh(mesh)
+        # each parameter's Shard over tp, or None (whole): a checkpoint's
+        # placement of the model; None without tp
+        self.param_placement: dict | None = None
+        shard = None if mesh is None else self.learner_mesh.dp.rows(self.config.num_envs)
         self.venv = VectorEnv(env, self.config.num_envs, self.env_params,
-                              final_obs=self.config.bootstrap_truncated, device=self.device)
+                              final_obs=self.config.bootstrap_truncated, device=self.device,
+                              shard=shard)
 
     # -- setup ---------------------------------------------------------------
     def init(self, key: torch.Tensor) -> PPORunner:
@@ -355,8 +415,12 @@ class PPO:
         key, k_net, k_env = rng.split(key.to(self.device), 3).unbind(0)
         obs, env_state = self.venv.reset(k_env)
         model = copy.deepcopy(self.network).init(k_net, {k: v[:1] for k, v in obs.items()})
+        lm = self.learner_mesh
+        if lm is not None and lm.tp.size > 1:
+            self.param_placement = tp_param_sharding(model, self.mesh)
+            shard_model_(model, self.param_placement, lm.tp)
         return PPORunner(ppo_train_state(model, self.config), env_state, obs, key,
-                         EpisodeStats.zeros(self.config.num_envs, self.device))
+                         EpisodeStats.zeros(self.venv.local_envs, self.device))
 
     # -- one update, in three phases -------------------------------------------
     def refill_period(self) -> int:
@@ -391,9 +455,10 @@ class PPO:
         env_state, obs, key, stats = runner.env_state, runner.obs, runner.key, runner.stats
         k = self.refill_period()
         steps = []
+        rows = None if self.mesh is None else (venv.lo, venv.hi)
         for t in range(cfg.num_steps):
             logits, value = model(obs)
-            key, action, log_prob = draw_actions(key, logits)
+            key, action, log_prob = draw_actions(key, logits, rows, venv.num_envs)
             step = venv.step_nofill if k > 1 else venv.step
             new_obs, env_state, reward, term, trunc, info = step(env_state, action)
             done = term | trunc
@@ -430,9 +495,15 @@ class PPO:
         """``update_epochs`` epochs, each a fresh permutation of the
         transitions cut into ``num_minibatches`` optimizer steps.  Returns
         the runner (its key moved on, the episode aggregates reset) and the
-        metrics: means over the steps, plus the rollout's episode stats."""
-        cfg, ts = self.config, runner.train_state
-        total = batch["action"].shape[0]
+        metrics: means over the steps, plus the rollout's episode stats.
+
+        With a mesh, ``batch`` is this rank's rows and the permutation is of
+        the global T*B transitions (global ``t * B + e`` is this rank's
+        ``t * b + e - lo``): each minibatch step takes the rank's transitions
+        of the global minibatch, and their count is read to the host once an
+        epoch."""
+        cfg, ts, lm = self.config, runner.train_state, self.learner_mesh
+        total = cfg.num_steps * cfg.num_envs
         if total % cfg.num_minibatches:
             raise ValueError(f"num_minibatches={cfg.num_minibatches} does not divide "
                              f"the {total} transitions")
@@ -441,15 +512,39 @@ class PPO:
         for _ in range(cfg.update_epochs):
             key, k_perm = rng.split(key).unbind(0)
             perm = rng.permutation(k_perm, total).long()
-            for i in range(cfg.num_minibatches):
-                idx = perm[i * mb_size:(i + 1) * mb_size]
+            if lm is None:
+                for i in range(cfg.num_minibatches):
+                    idx = perm[i * mb_size:(i + 1) * mb_size]
+                    loss, metrics = ppo_loss(ts.model, map_batch(lambda x: x[idx], batch),
+                                             cfg.clip_eps, cfg.ent_coef, cfg.vf_coef)
+                    ts.apply_gradients(loss)
+                    per_step.append(metrics)
+                continue
+            rows, counts = self._owned_rows(perm.view(cfg.num_minibatches, mb_size))
+            for i, count in enumerate(counts):
+                # a rank that owns no transition of this minibatch still takes
+                # part in its collectives, on one masked row
+                idx = rows[i, :count] if count else rows.new_zeros(1)
+                weight = None if count else torch.zeros(1, device=self.device)
+                shard = ShardMean(lm.dp, mb_size, weight)
                 loss, metrics = ppo_loss(ts.model, map_batch(lambda x: x[idx], batch),
-                                         cfg.clip_eps, cfg.ent_coef, cfg.vf_coef)
-                ts.apply_gradients(loss)
-                per_step.append(metrics)
-        episodes, stats = runner.stats.summary()
+                                         cfg.clip_eps, cfg.ent_coef, cfg.vf_coef, shard)
+                per_step.append(ts.apply_gradients(loss, lm, metrics))
+        episodes, stats = runner.stats.summary(None if lm is None else lm.dp.group)
         return (runner._replace(key=key, stats=stats),
                 {**mean_metrics(per_step), **episodes})
+
+    def _owned_rows(self, perm: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+        """This rank's transitions in each minibatch of the global
+        permutation ``perm [M, mb]``: (local rows ``[M, mb]``, each row's
+        first ``counts[i]`` entries this rank's transitions of minibatch i in
+        the permutation's order; the counts, read to the host at once)."""
+        venv = self.venv
+        env = perm % venv.num_envs
+        owned = (env >= venv.lo) & (env < venv.hi)
+        local = (perm // venv.num_envs) * venv.local_envs + (env - venv.lo)
+        order = torch.sort((~owned).to(torch.uint8), dim=1, stable=True).indices
+        return local.gather(1, order), owned.sum(1).tolist()
 
     def update(self, runner: PPORunner) -> tuple[PPORunner, dict]:
         """One PPO update: rollout, advantages, optimize."""
@@ -466,8 +561,9 @@ class PPO:
         return runner, {k: torch.stack([m[k] for m in history]) for k in history[0]}
 
 
-def train_step_fn(env: Env, env_params: EnvParams, config: PPOConfig, device=None):
+def train_step_fn(env: Env, env_params: EnvParams, config: PPOConfig, mesh=None,
+                  device=None):
     """(fn, runner): one PPO update as a function of the runner, and a runner
-    from ``PRNGKey(0)``."""
-    trainer = PPO(env, env_params, config, device=device)
+    from ``PRNGKey(0)`` (this rank's, with ``mesh``)."""
+    trainer = PPO(env, env_params, config, device=device, mesh=mesh)
     return trainer.update, trainer.init(rng.PRNGKey(0, trainer.device))

@@ -24,7 +24,9 @@ walls; the port keeps ``[N, W, H]``.
 parameters across, bit for bit: the flax trees of ``minigrid_tpu.rl`` as
 nested dicts of numpy arrays on one side, the port's ``torch.nn`` modules (or
 a dict of tensors keyed by their parameter names, such as gradients) on the
-other.
+other.  ``shard_params``/``unshard_params`` cut such a dict to one rank's
+tensor-parallel slices (``rl.tp_param_sharding``) and put the ranks' slices
+back together.
 """
 
 from __future__ import annotations
@@ -316,3 +318,37 @@ def recurrent_from_flax(tree: dict, dtype: torch.dtype = torch.bfloat16, device=
                                hidden=sizes["hidden"], embed_dim=sizes["embed_dim"],
                                conv_features=sizes["conv_features"], dtype=dtype)
     return _load(net, sd, sizes["view"], device)
+
+
+def shard_params(params: dict, placement: dict) -> dict:
+    """A full parameter set ``{name: tensor}`` -> one rank's: each parameter
+    placed by a ``Shard`` (``rl.tp_param_sharding``) cut to its rows along
+    its dim, the others whole."""
+    out = {}
+    for name, value in params.items():
+        shard = placement.get(name)
+        out[name] = value if shard is None else value.index_select(
+            shard.dim, torch.tensor(shard.rows, device=value.device))
+    return out
+
+
+def unshard_params(shards: list[dict], placements: list[dict]) -> dict:
+    """Every rank's parameters and placement -> the full set: each sharded
+    parameter put together from the ranks' rows, which must cover it, each
+    other one rank 0's."""
+    out = {}
+    for name, first in shards[0].items():
+        shard = placements[0].get(name)
+        if shard is None:
+            out[name] = first
+            continue
+        full = first.new_empty(shard.shape)
+        covered = torch.zeros(shard.shape[shard.dim], dtype=torch.bool)
+        for params, placement in zip(shards, placements):
+            rows = torch.tensor(placement[name].rows)
+            full.index_copy_(shard.dim, rows.to(full.device), params[name])
+            covered[rows] = True
+        if not bool(covered.all()):
+            raise ValueError(f"{name}: the ranks' slices do not cover its dim {shard.dim}")
+        out[name] = full
+    return out
