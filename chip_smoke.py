@@ -79,7 +79,7 @@ printing a result:
    ``make_vec(id, 4096)``: a walk of 8 steps (BabyAI at ``max_steps`` 4)
    with the launch counts zeroed before it, the gather bitwise on its
    states with the flipped-bit self-check, card == CPU at B=64 for 8
-   steps, env-steps/s (best of 2 x 32 steps); the gather at Directions'
+   steps, env-steps/s (best of 2 x 16 steps); the gather at Directions'
    3x3 with V=3 and at OneRoomS20's 20x20 on the ragged B=4097; BossLevel's
    launches per step over one step under ``torch.profiler``;
 
@@ -134,6 +134,23 @@ printing a result:
    same width with no host sync in its second update beyond the per-epoch
    count reads (asserted under ``torch.cuda.set_sync_debug_mode``), and
    ``tools/bench_sharded`` runs with the one rank the card holds;
+
+   then (phase 4i) the host surface: which optional packages import
+   (gymnasium, matplotlib, PIL, imageio); ``reset_exact`` on the card for
+   every supported id (167: the registry less the four dataset envs, which
+   must raise) at seeds 0 and 1, its host replay and its device half timed
+   apart, one ``obs_gather`` launch a reset, state and observation bitwise
+   the CPU's; exact-seed episodes through
+   ``gym.make("minigrid_tpu_torch/<id>", exact_seed=True)`` (DoorKey-8x8
+   and GoToLocal 64 steps, BossLevel 32) on the card and on the CPU, every
+   observation, mission, reward's bits, flag and ``hash`` equal,
+   ``obs_gather`` once per reset and step, a step's launches (traced), host
+   syncs and median time on both devices, a pickle round trip on the card
+   (without gymnasium, the same walks through ``reset_exact`` and
+   ``Env.step``); and ``tools/train_ppo`` at 64 envs x 16 steps, 2 updates
+   with ``--checkpoint`` then ``--resume`` and 1 more against 3 straight
+   (the loaded runner bitwise the saved one, the env state equal, parameters
+   and metrics within phase 4g's tolerances);
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
@@ -260,7 +277,7 @@ SLICE_B = (
 SLICE_B_STEPS = 8  # the walk: two waves at SLICE_B_EPISODE (BabyAI)
 SLICE_B_EPISODE = 4
 SLICE_B_CPU_STEPS = 8
-SLICE_B_TIMED_STEPS = 32  # best of 2
+SLICE_B_TIMED_STEPS = 16  # best of 2; 32 before phase 4i (BossLevel's 0.85 s steps)
 SLICE_B_PROFILED = "BabyAI-BossLevel-v0"
 # a traced step of BossLevel is 54,451 launches; the summary of the trace
 # takes about 30 s a step on the card's host (2 steps before phase 4f)
@@ -347,6 +364,22 @@ MESH_UPDATES = 2  # dp=2 PPO at LEARNER: the first held against the unsharded, t
 MESH_ACTION_AGREEMENT = 0.99  # least fraction of equal actions in update 1
 MESH_ENTROPY_RTOL = 1e-2  # update 1's entropy against the unsharded
 MESH_BENCH_STEPS = 64  # tools/bench_sharded, one rank
+
+# phase 4i: the host surface.  reset_exact on every supported id at each
+# seed (the four dataset envs draw from the unseeded global random modules
+# upstream, so seed parity is undefined for them), exact-seed GymEnv
+# episodes through gym.make, and tools/train_ppo broken by a checkpoint
+EXACT_UNSUPPORTED = ("BlocksDataset-v0", "ContrastiveDataset-v0",
+                     "ContrastiveTrajectoryDataset-v0", "DirectionsDataset-v0")
+EXACT_SUPPORTED = 167  # the 171 registered ids less the four above
+EXACT_SEEDS = (0, 1)
+OPTIONAL_PACKAGES = ("gymnasium", "matplotlib", "PIL", "imageio")
+GYM_EPISODES = (("MiniGrid-DoorKey-8x8-v0", 64), ("BabyAI-GoToLocal-v0", 64),
+                ("BabyAI-BossLevel-v0", 32))  # (id, steps), exact_seed=True
+GYM_SEED = 11  # the resets' seed and the actions' numpy seed
+GYM_TIMED_STEPS = 32  # per device, after the episode
+RESUME_ENVS, RESUME_STEPS = 64, 16  # tools/train_ppo's --num-envs, --num-steps
+RESUME_SPLIT = (2, 1)  # updates before and after the checkpoint, against their sum straight
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -2426,6 +2459,385 @@ def drive_multi_device(dev, card: str) -> dict:
     return out
 
 
+# -- phase 4i: the host surface ---------------------------------------------------
+
+def optional_packages() -> dict:
+    """Each optional package's version, or None where it does not import."""
+    import importlib
+
+    out = {}
+    for name in OPTIONAL_PACKAGES:
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "present")
+        except ImportError:
+            out[name] = None
+    return out
+
+
+def same_obs(a: dict, b: dict, what: str) -> None:
+    """Two observations of one env agree: numpy leaves in dtype and value,
+    the mission string, or tensor leaves of a batch."""
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: observation keys differ")
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, torch.Tensor):
+            x, y = x.cpu().numpy(), y.cpu().numpy()
+        if isinstance(x, str) or isinstance(y, str):
+            ok = x == y
+        else:
+            ok = (type(x) is type(y) and x.dtype == y.dtype and x.shape == y.shape
+                  and bool((x == y).all()))
+        if not ok:
+            raise AssertionError(f"{what}: observation {k} differs card vs CPU")
+
+
+def drive_exact_resets(dev, counters: dict, card: str) -> dict:
+    """Phase 4i (b): ``reset_exact`` on the card for every supported id at
+    EXACT_SEEDS: its two halves timed apart (``host_level``, then
+    ``finalize_level`` with a sync), one ``obs_gather`` launch a reset, then
+    the public ``reset_exact`` on the card (one launch again) and on the CPU,
+    state and observation bitwise."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.utils import exact
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    cpu = torch.device("cpu")
+    ids = minigrid_tpu_torch.registered_ids()
+    refused = tuple(sorted(i for i in ids if not exact.supported(minigrid_tpu_torch.make(i))))
+    if refused != EXACT_UNSUPPORTED:
+        raise AssertionError(f"reset_exact refuses {refused}, expected {EXACT_UNSUPPORTED}")
+    supported = [i for i in ids if i not in EXACT_UNSUPPORTED]
+    if len(supported) != EXACT_SUPPORTED:
+        raise AssertionError(f"{len(supported)} supported ids, expected {EXACT_SUPPORTED}")
+    for env_id in refused:
+        try:
+            exact.reset_exact(minigrid_tpu_torch.make(env_id), 0, device=dev)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"reset_exact of {env_id} did not raise")
+    ms = {"MiniGrid": ([], []), "BabyAI": ([], [])}
+    launches_total = 0
+    for env_id in supported:
+        env = minigrid_tpu_torch.make(env_id)
+        params = env.default_params
+        fam = "BabyAI" if env_id.startswith("BabyAI-") else "MiniGrid"
+        for seed in EXACT_SEEDS:
+            what = f"reset_exact {env_id} seed {seed}"
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            level = exact.host_level(env, seed, params)
+            t1 = time.perf_counter()
+            obs, state = exact.finalize_level(env, level, seed, params, dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = read_counts(counters)
+            if launches != {"obs_gather": 1, "fused_step": 0}:
+                raise AssertionError(f"{what}: launches {launches}, expected one obs_gather")
+            zero_counts(counters)
+            pub_obs, pub_state = exact.reset_exact(env, seed, params, device=dev)
+            if read_counts(counters)["obs_gather"] != 1:
+                raise AssertionError(f"{what}: the public reset_exact launched "
+                                     f"{read_counts(counters)}")
+            launches_total += 2
+            if pub_state.grid.device.type != dev.type:
+                raise AssertionError(f"{what}: the state is not on the card")
+            cpu_obs, cpu_state = exact.reset_exact(env, seed, params, device=cpu)
+            card_fields = state_to_numpy(state)
+            same_fields(card_fields, state_to_numpy(cpu_state), what + " ")
+            same_fields(state_to_numpy(pub_state), card_fields, what + " public ")
+            same_obs(obs, cpu_obs, what)
+            same_obs(pub_obs, obs, what + " public")
+            ms[fam][0].append((t1 - t0) * 1e3)
+            ms[fam][1].append((t2 - t1) * 1e3)
+    out = {"launches": launches_total, "resets": 2 * len(supported) * len(EXACT_SEEDS)}
+    for fam, (host, device) in ms.items():
+        out[fam] = {"host_ms": statistics.median(host), "device_ms": statistics.median(device),
+                    "host_max_ms": max(host), "device_max_ms": max(device), "resets": len(host)}
+        log(f"  (b) {fam}: {len(host)} resets, host generation median "
+            f"{out[fam]['host_ms']:.3f} ms (max {out[fam]['host_max_ms']:.3f}), device "
+            f"finalize and observation median {out[fam]['device_ms']:.3f} ms (max "
+            f"{out[fam]['device_max_ms']:.3f}) [{card}]")
+    log(f"  (b) reset_exact: {len(supported)} ids x {len(EXACT_SEEDS)} seeds, card == CPU "
+        f"bitwise (state and observation), one obs_gather launch a reset "
+        f"({launches_total} in all); the four dataset ids refused")
+    return out
+
+
+class CoreAdapter:
+    """The Gymnasium adapter's functional core, for a machine without
+    gymnasium: ``reset_exact`` (or ``Env.reset`` on the threefry key stream
+    when unseeded) and ``Env.step`` on a batch of one, the outputs read back
+    in one copy (``utils/convert.to_host``), ``hash`` of row 0, and a
+    pickle round trip through ``state_to_numpy``."""
+
+    def __init__(self, env_id: str, device):
+        import minigrid_tpu_torch
+        from minigrid_tpu_torch.core import rng
+
+        self.env = minigrid_tpu_torch.make(env_id)
+        self.params = self.env.default_params
+        self.device = torch.device(device)
+        self.num_actions = self.env.num_actions
+        self.key = rng.PRNGKey(0, self.device)
+        self.state = None
+
+    def _host(self, obs: dict, more: tuple = ()) -> tuple:
+        from minigrid_tpu_torch.utils.convert import to_host
+
+        arrays = to_host([v[0] for v in obs.values()] + list(more))
+        out = {k: a for k, a in zip(obs, arrays)}
+        out["mission"] = self.env.mission_text(out["mission"])
+        return out, arrays[len(obs):]
+
+    def reset(self, seed=None):
+        from minigrid_tpu_torch.core import rng
+        from minigrid_tpu_torch.utils.exact import reset_exact
+
+        if seed is not None:
+            obs, self.state = reset_exact(self.env, seed, self.params, self.device)
+            self.key = rng.PRNGKey(seed, self.device)
+        else:
+            self.key, k = rng.split(self.key).unbind(0)
+            obs, self.state = self.env.reset(k[None], self.params, self.device)
+        return self._host(obs)[0], {}
+
+    def step(self, action: int):
+        a = torch.full((1,), int(action), dtype=torch.int32, device=self.device)
+        obs, self.state, r, te, tr, info = self.env.step(self.state, a, self.params)
+        out, (r, te, tr) = self._host(obs, (r, te, tr))
+        return out, float(r[0]), bool(te[0]), bool(tr[0]), dict(info)
+
+    def hash(self) -> str:
+        from minigrid_tpu_torch.core.state import map_fields
+        from minigrid_tpu_torch.utils.checkpoint import state_hash
+
+        return state_hash(map_fields(lambda t: t[0], self.state))
+
+    def clone(self) -> "CoreAdapter":
+        """A copy through pickled host numpy, back on this device."""
+        import pickle
+
+        from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+        other = object.__new__(CoreAdapter)
+        other.__dict__.update(self.__dict__)
+        other.state = state_from_numpy(pickle.loads(pickle.dumps(state_to_numpy(self.state))),
+                                       self.device)
+        return other
+
+
+def gym_episode(make, env_id: str, steps: int, counters: dict | None) -> dict:
+    """One exact-seed episode walk: reset(seed=GYM_SEED), ``steps`` steps of
+    numpy-seeded actions, an unseeded reset after an episode ends.  Records
+    every output and hash; with ``counters``, the launches."""
+    import numpy as np
+
+    env = make(env_id)
+    base = env.unwrapped if hasattr(env, "unwrapped") else env
+    n = env.action_space.n if hasattr(env, "action_space") else env.num_actions
+    actions = np.random.default_rng(GYM_SEED).integers(0, n, steps)
+    if counters is not None:
+        zero_counts(counters)
+    obs, _ = env.reset(seed=GYM_SEED)
+    rec = {"env": base, "outputs": [(obs, base.hash())], "resets": 1}
+    for a in actions:
+        obs, reward, term, trunc, _ = env.step(int(a))
+        rec["outputs"].append((obs, np.float32(reward).tobytes(), term, trunc, base.hash()))
+        if term or trunc:
+            rec["outputs"].append((env.reset()[0], base.hash()))
+            rec["resets"] += 1
+    if counters is not None:
+        torch.cuda.synchronize()
+        rec["launches"] = read_counts(counters)
+    return rec
+
+
+def same_outputs(got: list, want: list, what: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} records against {len(want)}")
+    for t, (g, w) in enumerate(zip(got, want)):
+        same_obs(g[0], w[0], f"{what} record {t}")
+        if g[1:] != w[1:]:
+            raise AssertionError(f"{what} record {t}: reward bits, flags or hash differ "
+                                 f"card vs CPU: {g[1:]} against {w[1:]}")
+
+
+def step_costs(env) -> dict:
+    """One adapter step on the card under ``torch.profiler`` (its launches)
+    and under ``torch.cuda.set_sync_debug_mode`` (its host syncs)."""
+    import warnings
+
+    traced = trace_device(lambda: env.step(2))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            env.step(1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    return {"step_launches": traced["launches"], "step_syncs": len(syncs)}
+
+
+def median_step_us(env, steps: int) -> float:
+    """Median wall µs of ``env.step`` (each returns host values, so each
+    call ends synced)."""
+    import numpy as np
+
+    actions = np.random.default_rng(GYM_SEED + 1).integers(0, 7, steps)
+    times = []
+    for a in actions:
+        t0 = time.perf_counter()
+        _, _, term, trunc, _ = env.step(int(a))
+        times.append((time.perf_counter() - t0) * 1e6)
+        if term or trunc:
+            env.reset()
+    return statistics.median(times)
+
+
+def drive_gym_episodes(dev, counters: dict, card: str, has_gym: bool) -> dict:
+    """Phase 4i (c): GYM_EPISODES through ``gym.make("minigrid_tpu_torch/<id>",
+    exact_seed=True)`` on the card and on the CPU (without gymnasium, through
+    the adapter's functional core, :class:`CoreAdapter`), every output and
+    hash equal, ``obs_gather`` once per reset and step; a pickle round trip
+    on the card; a step's launches, host syncs and median time on both
+    devices."""
+    import pickle
+
+    if has_gym:
+        import gymnasium as gym
+
+        from minigrid_tpu_torch import gym_compat
+
+        gym_compat.register_gym_envs()
+
+        def maker(d):
+            return lambda env_id: gym.make(gym_compat.gym_id(env_id), exact_seed=True,
+                                           device=d)
+    else:
+        def maker(d):
+            return lambda env_id: CoreAdapter(env_id, d)
+    route = "gym.make" if has_gym else "gymnasium absent: the functional core"
+    out = {"route": route}
+    for env_id, steps in GYM_EPISODES:
+        card_rec = gym_episode(maker(dev), env_id, steps, counters)
+        cpu_rec = gym_episode(maker("cpu"), env_id, steps, None)
+        what = f"(c) {env_id}"
+        same_outputs(card_rec["outputs"], cpu_rec["outputs"], what)
+        want = {"obs_gather": steps + card_rec["resets"], "fused_step": 0}
+        if card_rec["launches"] != want:
+            raise AssertionError(f"{what}: launches {card_rec['launches']}, expected {want}")
+        env = card_rec["env"]
+        clone = pickle.loads(pickle.dumps(env)) if has_gym else env.clone()
+        state = clone._state if has_gym else clone.state
+        if clone.device.type != dev.type or state.grid.device.type != dev.type:
+            raise AssertionError(f"{what}: the unpickled adapter left the card")
+        if clone.hash() != env.hash():
+            raise AssertionError(f"{what}: the pickle round trip changed the state")
+        a, b = clone.step(3), env.step(3)
+        same_obs(a[0], b[0], f"{what} after the pickle")
+        if a[1:] != b[1:] or clone.hash() != env.hash():
+            raise AssertionError(f"{what}: the unpickled adapter steps apart")
+        row = {"steps": steps, "resets": card_rec["resets"], "launches": card_rec["launches"]}
+        row.update(step_costs(env))
+        row["card_us"] = median_step_us(env, GYM_TIMED_STEPS)
+        row["cpu_us"] = median_step_us(cpu_rec["env"], GYM_TIMED_STEPS)
+        log(f"  (c) {env_id} ({route}): {steps} steps, {row['resets']} resets, card == "
+            f"CPU (observations, missions, reward bits, flags, hash), obs_gather "
+            f"{row['launches']['obs_gather']}; pickle round trip on the card; a step: "
+            f"{row['step_launches']} launches traced, {row['step_syncs']} host syncs, "
+            f"median {row['card_us']:.1f} us on the card and {row['cpu_us']:.1f} us on "
+            f"the CPU [{card}]")
+        out[env_id] = row
+    return out
+
+
+def drive_resume(dev, card: str) -> dict:
+    """Phase 4i (d): ``tools/train_ppo`` on the card at RESUME_ENVS x RESUME_STEPS, RESUME_SPLIT
+    updates with ``--checkpoint`` then ``--resume``, against their sum
+    straight, both legs annealing over the whole run (``--total-updates``),
+    cuDNN's deterministic algorithms on.  The runner loaded from the file
+    equals the saved one bitwise; the continued run's env state equals the
+    straight run's, and its parameters and metrics are within phase 4g's
+    card == CPU tolerances."""
+    import os
+    import tempfile
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.rl import PPO, PPOConfig
+    from minigrid_tpu_torch.tools import train_ppo
+    from minigrid_tpu_torch.utils.checkpoint import load, max_abs_diff, state_hash
+
+    n, m = RESUME_SPLIT
+    args = ["--env", ENV_ID, "--num-envs", str(RESUME_ENVS), "--num-steps",
+            str(RESUME_STEPS), "--seed", "0", "--device", str(dev)]
+    total = ["--total-updates", str(n + m)]
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "runner.pt")
+            first, first_hist = train_ppo.main(args + total + [
+                "--num-updates", str(n), "--checkpoint", path])
+            env = minigrid_tpu_torch.make(ENV_ID)
+            cfg = PPOConfig(num_envs=RESUME_ENVS, num_steps=RESUME_STEPS, num_updates=n + m)
+            trainer = PPO(env, env.default_params, cfg, device=dev)
+            loaded = load(path, trainer.init(rng.PRNGKey(1, dev)))
+            load_diff = max_abs_diff(loaded, first)
+            if load_diff != 0.0:
+                raise AssertionError(f"(d) the loaded runner differs from the saved one "
+                                     f"by {load_diff}")
+            resumed, resumed_hist = train_ppo.main(args + total + [
+                "--num-updates", str(m), "--resume", path])
+        straight, straight_hist = train_ppo.main(args + ["--num-updates", str(n + m)])
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    if state_hash(resumed.env_state) != state_hash(straight.env_state):
+        raise AssertionError("(d) the resumed run's env state differs from the straight run's")
+    params = max(float((a - b).detach().abs().max()) for a, b in zip(
+        resumed.train_state.model.parameters(), straight.train_state.model.parameters()))
+    if params > 0.1 * PPOConfig().lr:
+        raise AssertionError(f"(d) parameters off by {params}")
+    metric = 0.0
+    for got, want in zip(resumed_hist, straight_hist[n:]):
+        for k, v in got.items():
+            w = want[k].double()
+            err = float(((v.double() - w).abs() / w.abs().clamp(min=1e-3)).max())
+            metric = max(metric, err)
+    if metric > LEARNER_METRIC_RTOL:
+        raise AssertionError(f"(d) metrics off by {metric} (relative)")
+    whole = max_abs_diff(resumed, straight)
+    log(f"  (d) train_ppo {' '.join(args)}: {n} updates + checkpoint, the load "
+        f"bitwise; --resume + {m} against {n + m} straight: env state equal, parameters "
+        f"{params:.3g} apart, metrics {metric:.3g} (relative), the whole runner "
+        f"{whole:.3g} [{card}]")
+    return {"load_diff": load_diff, "param_diff": params, "metric_rdiff": metric,
+            "runner_diff": whole}
+
+
+def drive_host_surface(dev, counters: dict, card: str) -> dict:
+    """Phase 4i: (a) the optional packages; (b) ``reset_exact`` on every
+    supported id; (c) exact-seed ``GymEnv`` episodes; (d) the
+    ``train_ppo`` resume.  Returns what PERF.md reads."""
+    packages = optional_packages()
+    log("  (a) optional packages: " + ", ".join(
+        f"{k} {v if v else 'absent'}" for k, v in packages.items()))
+    out = {"packages": packages, "seconds": {}}
+    t0 = time.perf_counter()
+    out["exact"] = drive_exact_resets(dev, counters, card)
+    out["seconds"]["exact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["gym"] = drive_gym_episodes(dev, counters, card, packages["gymnasium"] is not None)
+    out["seconds"]["gym"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["resume"] = drive_resume(dev, card)
+    out["seconds"]["resume"] = time.perf_counter() - t0
+    log(f"  phase 4i seconds: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -2591,6 +3003,11 @@ def main() -> int:
     t0 = time.perf_counter()
     drive_multi_device(dev, card)
     log(f"  the multi-device phase took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4i: the host surface")
+    t0 = time.perf_counter()
+    drive_host_surface(dev, counters, card)
+    log(f"  the host-surface phase took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)

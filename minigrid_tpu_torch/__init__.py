@@ -15,8 +15,10 @@ full and POV frames as one row gather, ``Env.get_frame``), the timing
 tools ``tools/bench.py``, ``tools/benchmark.py`` and ``tools/battery.py``, and
 the learner of ``minigrid_tpu_torch.rl`` (PPO with GAE, recurrent PPO and
 behavior cloning, driven by ``tools/train_ppo.py`` and
-``tools/train_rnn_ppo.py``).  Entry points run on CUDA unless the caller
-passes ``device="cpu"``.
+``tools/train_rnn_ppo.py``), and the reference's own surface: seed-exact
+levels (``utils/exact.py``), the Gymnasium adapter (``gym_compat.py``, ids
+``minigrid_tpu_torch/<id>``) and ``utils/convert.from_reference``.  Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 
     import minigrid_tpu_torch as mgt
     from minigrid_tpu_torch.core import rng

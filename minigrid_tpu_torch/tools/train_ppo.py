@@ -6,7 +6,14 @@ per-update line, and the closing "env-steps in ... s" line, on CUDA unless
 ``ActorCritic`` (1,850,201 parameters at the 7x7 view).
 
     python -m minigrid_tpu_torch.tools.train_ppo --env MiniGrid-DoorKey-5x5-v0 \\
-        --num-envs 1024 --num-updates 40
+        --num-envs 1024 --num-updates 40 [--checkpoint /tmp/ppo.pt]
+
+``--checkpoint`` saves the runner (model, optimizer, env state, key, episode
+tallies) after training and ``--resume`` restores one before it
+(``utils/checkpoint.py``).  The learning rate anneals over
+``--total-updates`` (default ``--num-updates``): give both legs of a broken
+run the whole run's count, and 2 updates saved, then resumed for 1, equal 3
+updates straight.
 """
 
 from __future__ import annotations
@@ -14,12 +21,10 @@ from __future__ import annotations
 import argparse
 import time
 
-LATER = ("--checkpoint and --resume (saving and restoring the runner) are not "
-         "ported yet: they wait for the port of utils/checkpoint.py.")
 
-
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0], epilog=LATER)
+def main(argv=None):
+    """Run the tool; returns the final runner and each update's metrics."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--env", default="MiniGrid-Empty-8x8-v0")
     p.add_argument("--num-envs", type=int, default=1024)
     p.add_argument("--num-steps", type=int, default=128)
@@ -27,6 +32,13 @@ def main(argv=None) -> None:
     p.add_argument("--lr", type=float, default=2.5e-4)
     p.add_argument("--ent-coef", type=float, default=0.01)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--total-updates", type=int, default=None,
+                   help="updates the learning rate anneals over, resumes included "
+                        "(default: --num-updates)")
+    p.add_argument("--checkpoint", default=None,
+                   help="save the runner here after training")
+    p.add_argument("--resume", default=None,
+                   help="restore a runner checkpoint before training")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     args = p.parse_args(argv)
@@ -37,13 +49,20 @@ def main(argv=None) -> None:
 
     env = minigrid_tpu_torch.make(args.env)
     cfg = PPOConfig(num_envs=args.num_envs, num_steps=args.num_steps,
-                    num_updates=args.num_updates, lr=args.lr, ent_coef=args.ent_coef)
+                    num_updates=args.total_updates or args.num_updates, lr=args.lr,
+                    ent_coef=args.ent_coef)
     trainer = PPO(env, env.default_params, cfg, device=args.device)
     runner = trainer.init(rng.PRNGKey(args.seed, trainer.device))
+    if args.resume:
+        from minigrid_tpu_torch.utils.checkpoint import load
+
+        runner = load(args.resume, runner)
 
     t0 = time.perf_counter()
+    history = []
     for u in range(args.num_updates):
         runner, m = trainer.update(runner)
+        history.append(m)
         print(f"update {u + 1:4d}  return={float(m['mean_return']):7.3f}  "
               f"success={float(m['success_rate']):5.2f}  "
               f"len={float(m['mean_length']):6.1f}  "
@@ -53,6 +72,13 @@ def main(argv=None) -> None:
     steps = args.num_updates * args.num_envs * args.num_steps
     print(f"\n{steps:,} env-steps in {dt:.0f}s "
           f"({steps / dt:,.0f} steps/s through the full PPO loop)")
+
+    if args.checkpoint:
+        from minigrid_tpu_torch.utils.checkpoint import save
+
+        save(args.checkpoint, runner)
+        print(f"runner saved to {args.checkpoint}")
+    return runner, history
 
 
 if __name__ == "__main__":

@@ -14,11 +14,9 @@ from __future__ import annotations
 import argparse
 import time
 
-from minigrid_tpu_torch.tools.train_ppo import LATER
-
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0], epilog=LATER)
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--env", default="MiniGrid-MemoryS7-v0")
     p.add_argument("--num-envs", type=int, default=512)
     p.add_argument("--num-steps", type=int, default=256)

@@ -29,7 +29,8 @@ Two on-disk layouts, selected automatically:
 
 Both write to a temporary name and ``os.replace`` it, so a crash never
 leaves a torn checkpoint.  :func:`state_hash` is the JAX package's digest of
-an env state, byte for byte.
+an env state, byte for byte; :func:`max_abs_diff` compares two trees of one
+structure (a saved runner and its restored copy, two training runs).
 """
 
 from __future__ import annotations
@@ -238,6 +239,53 @@ def _assemble(i: int, entries: list) -> Any:
         raise ValueError(f"leaf {i}: the shard files cover {int(covered.sum())} of its "
                          f"{shape[dim]} rows (missing a rank's file?)")
     return full
+
+
+def _values(leaf: Any) -> Iterator[Any]:
+    """A leaf's values: itself, or an optimizer's ``state_dict`` entries."""
+    if isinstance(leaf, torch.optim.Optimizer):
+        leaf = leaf.state_dict()
+    if isinstance(leaf, dict):
+        for k in sorted(leaf, key=str):
+            yield from _values(leaf[k])
+    elif isinstance(leaf, (list, tuple)):
+        for v in leaf:
+            yield from _values(v)
+    else:
+        yield leaf
+
+
+def max_abs_diff(a: Any, b: Any) -> float:
+    """The largest |a - b| over the leaves of two trees of one structure
+    (tensors, Python numbers, optimizer states), in float64; 0.0 when they
+    are equal, NaN where one holds a NaN the other lacks.  A tree of another
+    structure, shape or dtype raises ``ValueError``."""
+    xs = [v for leaf, _ in _flatten(a) for v in _values(leaf)]
+    ys = [v for leaf, _ in _flatten(b) for v in _values(leaf)]
+    if len(xs) != len(ys):
+        raise ValueError(f"trees of {len(xs)} and {len(ys)} values")
+    worst = 0.0
+    for x, y in zip(xs, ys):
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            raise ValueError("a tensor against a non-tensor")
+        if not isinstance(x, torch.Tensor):
+            if x == y:
+                continue
+            if not (isinstance(x, _SCALARS) and isinstance(y, _SCALARS)):
+                raise ValueError(f"values differ: {x!r} and {y!r}")
+            x, y = torch.tensor(float(x)), torch.tensor(float(y))
+        elif x.shape != y.shape or x.dtype != y.dtype:
+            raise ValueError(f"leaves of {tuple(x.shape)} {x.dtype} and "
+                             f"{tuple(y.shape)} {y.dtype}")
+        if x.numel() == 0:
+            continue
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        same = (x == y) | (x.isnan() & y.isnan())
+        d = torch.where(same, 0.0, (x - y).abs()).max()
+        worst = float("nan") if d.isnan() else max(worst, float(d))
+        if worst != worst:
+            return worst
+    return worst
 
 
 # -- the JAX package's state digest --------------------------------------------------

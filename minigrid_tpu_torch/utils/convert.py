@@ -19,6 +19,13 @@ int32.
 rows, ``LANES = max(W*H, V*V)``, whose lanes past ``W*H`` are packed grey
 walls; the port keeps ``[N, W, H]``.
 
+``from_reference`` lowers a live reference ``MiniGridEnv`` (its ``grid``,
+``agent_pos``, ``agent_dir``, ``carrying`` and ``step_count``) to the
+port's state with a batch of one, and ``state_equals_reference`` compares
+such a state's world with the reference's, as the JAX package's helpers of
+the same names do (``encode_obj`` encodes one reference object).
+``to_host`` reads several tensors back to numpy in one copy.
+
 ``actor_critic_from_flax``/``actor_critic_to_flax`` and
 ``recurrent_from_flax``/``recurrent_to_flax`` carry the learner's network
 parameters across, bit for bit: the flax trees of ``minigrid_tpu.rl`` as
@@ -37,7 +44,8 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.core import constants as C
-from minigrid_tpu_torch.core.grid_ops import pack_word
+from minigrid_tpu_torch.core.grid_ops import pack_np, pack_word, unpack_np
+from minigrid_tpu_torch.core.rng import PRNGKey
 from minigrid_tpu_torch.core.state import EnvState, map_tree, resolve_device
 from minigrid_tpu_torch.parallel.vector import PooledState
 
@@ -175,6 +183,81 @@ def fused_state_to_numpy(fs: dict, lanes: int) -> dict:
     out["grid"] = np.concatenate([grid, pad], axis=1)
     out["rng"] = out["rng"].astype(np.uint32)
     return out
+
+
+_NUMPY = {torch.uint8: np.uint8, torch.bool: np.bool_, torch.int32: np.int32,
+          torch.int64: np.int64, torch.float32: np.float32}
+
+
+def to_host(tensors) -> list[np.ndarray]:
+    """Tensors of one device as numpy arrays through ONE device-to-host
+    copy: their bytes packed into one buffer, then viewed back.  Each array
+    keeps its tensor's shape and dtype."""
+    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
+    blob = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel() * f.element_size()
+        out.append(blob[at:at + n].view(_NUMPY[f.dtype]).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
+# -- the reference's live envs -------------------------------------------------------
+
+def encode_obj(obj) -> np.ndarray:
+    """WorldObj -> (type, color, state) uint8 triple; None -> empty (1,0,0)."""
+    if obj is None:
+        return np.asarray(C.EMPTY_TRIPLE)
+    return np.asarray(obj.encode(), dtype=np.uint8)
+
+
+def from_reference(ref_env, rng=None, device=None) -> EnvState:
+    """Lower a live reference MiniGridEnv to the port's state, a batch of one
+    on ``device`` (CUDA unless named); ``rng`` is the state's key, int64[2]
+    (default ``PRNGKey(0)``)."""
+    dev = resolve_device(device)
+    w, h = ref_env.grid.width, ref_env.grid.height
+    grid = np.asarray(ref_env.grid.encode(), dtype=np.uint8)
+    box_contains = np.broadcast_to(np.asarray(C.EMPTY_TRIPLE), (w, h, 3)).copy()
+    for j in range(h):
+        for i in range(w):
+            cell = ref_env.grid.get(i, j)
+            if cell is not None and getattr(cell, "contains", None) is not None:
+                box_contains[i, j] = encode_obj(cell.contains)
+    carrying = encode_obj(ref_env.carrying)
+    carrying_contains = encode_obj(getattr(ref_env.carrying, "contains", None))
+
+    def one(a, dtype):
+        return torch.from_numpy(np.asarray(a)[None]).to(device=dev, dtype=dtype)
+
+    key = PRNGKey(0, dev) if rng is None else rng.to(device=dev, dtype=torch.int64)
+    return EnvState(
+        grid=one(pack_np(grid), torch.int32),
+        box_contains=one(pack_np(box_contains), torch.int32),
+        agent_pos=one(ref_env.agent_pos, torch.int32),
+        agent_dir=one(ref_env.agent_dir, torch.int32),
+        carrying=one(carrying, torch.uint8),
+        carrying_contains=one(carrying_contains, torch.uint8),
+        step_count=one(ref_env.step_count, torch.int32),
+        terminated=torch.zeros((1,), dtype=torch.bool, device=dev),
+        truncated=torch.zeros((1,), dtype=torch.bool, device=dev),
+        rng=key.reshape(1, 2),
+        mission=torch.zeros((1, 4), dtype=torch.int32, device=dev),
+        max_steps=torch.zeros((1,), dtype=torch.int32, device=dev),
+    )
+
+
+def state_equals_reference(state: EnvState, ref_env) -> bool:
+    """World-state comparison of a batch of one with a reference env: grid
+    triples, agent pose and carried object."""
+    ref_grid = np.asarray(ref_env.grid.encode(), dtype=np.uint8)
+    return (
+        np.array_equal(unpack_np(state.grid[0].cpu().numpy()), ref_grid)
+        and np.array_equal(state.agent_pos[0].cpu().numpy(), np.asarray(ref_env.agent_pos))
+        and int(state.agent_dir[0]) == int(ref_env.agent_dir)
+        and np.array_equal(state.carrying[0].cpu().numpy(), encode_obj(ref_env.carrying))
+    )
 
 
 # -- network parameters: the flax trees of minigrid_tpu/rl ------------------------------
