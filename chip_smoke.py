@@ -151,6 +151,20 @@ printing a result:
    with ``--checkpoint`` then ``--resume`` and 1 more against 3 straight
    (the loaded runner bitwise the saved one, the env state equal, parameters
    and metrics within phase 4g's tolerances);
+
+   then (phase 4j) the host tools, with the launch counts zeroed before each
+   part: the BFS oracle's demos (ContrastiveTrajectory 6, Negated-Simple 8,
+   seed 0) on the card against ``collect`` on the CPU, every observation
+   equal and one ``obs_gather`` launch per reset and step, ``pack_demos``
+   through ``torch.save``; ``tools/profile.profile_rollout`` at the main
+   configuration for 64 steps with a chrome trace, the gather kernel among
+   its kernels once per observation; ``tools/autotune`` on DoorKey-8x8 at
+   B=4096 over 16-step rollouts, all 17 candidates measured; the quick
+   ``tools/battery_sweep`` into a file seeded with every module but four,
+   the gate first; ``tools/gen_docs.build_pages`` with a frame of every
+   family, six families' PNGs and a GIF card == CPU byte for byte, and
+   ``tools/gen_site.build_site`` over the pages; ``ManualControl`` with a
+   fake window, every frame card == CPU; ``tools/smoke.run_smoke``;
 5. time each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (CUDA events over CUDA-graph replays,
    median), compute each kernel's bound (the gather also on the 25x25,
@@ -380,6 +394,19 @@ GYM_SEED = 11  # the resets' seed and the actions' numpy seed
 GYM_TIMED_STEPS = 32  # per device, after the episode
 RESUME_ENVS, RESUME_STEPS = 64, 16  # tools/train_ppo's --num-envs, --num-steps
 RESUME_SPLIT = (2, 1)  # updates before and after the checkpoint, against their sum straight
+
+# phase 4j: the host tools.  The oracle's demos card == CPU (id, demos asked
+# for; seed 0), profile and autotune at the main configuration, the sweep's
+# quick rows, gen_docs' frames and GIF (two MiniGrid, two BabyAI, two dataset
+# families), ManualControl's keys, run_smoke
+HOST_DEMOS = (("ContrastiveTrajectoryDataset-v0", 6), ("MiniGrid-Negated-Simple-v0", 8))
+PROFILE_STEPS = 64
+AUTOTUNE_STEPS = 16  # a multiple of every candidate's refill period
+SWEEP_MODULES = ("empty", "doorkey", "babyai_goto", "rgb_partial")
+DOC_FAMILIES = ("EmptyEnv", "DoorKeyEnv", "GoToRedBallGrey", "BossLevel",
+                "BlocksDataset", "NegatedSimple")
+GIF_FRAMES = 12
+MANUAL_KEYS = ("up", "up", "right", "up", "left", " ", "backspace")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # outside the tensor cores (half the 67 TFLOP/s float32 rate: 64 INT32 lanes
@@ -1783,6 +1810,8 @@ def trace_device(fn) -> dict:
     minutes), its idle share and the kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
+    from minigrid_tpu_torch.tools.bench import LAUNCH_CALLS
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1793,7 +1822,7 @@ def trace_device(fn) -> dict:
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             busy_ns += e.duration_ns()
-        elif e.name() in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+        elif e.name() in LAUNCH_CALLS:
             launches += 1
     return {"wall_s": wall, "busy_s": busy_ns / 1e9,
             "idle_share": 1 - busy_ns / 1e9 / wall, "launches": launches}
@@ -2838,6 +2867,335 @@ def drive_host_surface(dev, counters: dict, card: str) -> dict:
     return out
 
 
+# -- phase 4j: the host tools ----------------------------------------------------
+
+def counted(env, *names: str) -> dict:
+    """Count the calls of ``env``'s methods ``names`` (instance attributes
+    in front of the class's): -> the live counts."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def wrapped(*args, _fn=getattr(env, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        setattr(env, name, wrapped)
+    return calls
+
+
+def same_demos(got: list, want: list, what: str) -> None:
+    """Two demo lists agree: missions, actions, reward bits, targets and
+    every observation."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} demos against {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = (g[0] == w[0] and g[2] == w[2] and g[5] == w[5]
+                and np.asarray(g[3], np.float32).tobytes()
+                == np.asarray(w[3], np.float32).tobytes()
+                and [int(x) for x in g[4]] == [int(x) for x in w[4]]
+                and len(g[1]) == len(w[1]))
+        if not same:
+            raise AssertionError(f"{what}: demo {i} differs card vs CPU")
+        for t, (og, ow) in enumerate(zip(g[1], w[1])):
+            same_obs(og, ow, f"{what} demo {i} step {t}")
+
+
+def drive_oracle(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (a): the oracle's demos of HOST_DEMOS on the card (one
+    ``obs_gather`` launch per reset and step, asserted) and through
+    ``collect`` on the CPU, equal; ``pack_demos`` through ``torch.save`` and
+    ``torch.load``."""
+    import tempfile
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.tools import generate_demos
+    from minigrid_tpu_torch.tools.oracle import OracleAgent
+
+    out = {}
+    for env_id, num_demos in HOST_DEMOS:
+        env = minigrid_tpu_torch.make(env_id)
+        calls = counted(env, "reset", "step")
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        demos = OracleAgent(env, device=dev).generate_demos(rng.PRNGKey(0, dev), num_demos)
+        seconds = time.perf_counter() - t0
+        launches = read_counts(counters)
+        same_demos(demos, generate_demos.collect(env_id, num_demos, seed=0, device="cpu"),
+                   f"(a) {env_id}")
+        want = {"obs_gather": calls["reset"] + calls["step"], "fused_step": 0}
+        if launches != want:
+            raise AssertionError(f"(a) {env_id}: launches {launches}, expected {want}")
+        packed = generate_demos.pack_demos(demos)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(packed, f"{tmp}/demos.pt")
+            loaded = torch.load(f"{tmp}/demos.pt")
+        if loaded["missions"] != packed["missions"] or any(
+                not torch.equal(loaded[k], packed[k]) for k in packed if k != "missions"):
+            raise AssertionError(f"(a) {env_id}: pack_demos did not round-trip")
+        ms = seconds / (calls["reset"] + calls["step"]) * 1e3
+        log(f"  (a) {env_id}: {len(demos)} demos of {num_demos} (lengths "
+            f"{[len(d[2]) for d in demos]}), card == CPU (missions, actions, reward bits, "
+            f"targets, every observation); {calls['reset']} resets and {calls['step']} "
+            f"steps, obs_gather {launches['obs_gather']}; {ms:.2f} ms a reset or step "
+            f"with its host reads; pack_demos round-trips through torch.save [{card}]")
+        out[env_id] = {"demos": len(demos), "resets": calls["reset"],
+                       "steps": calls["step"], "ms": ms}
+    return out
+
+
+def drive_profile(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (b): ``profile_rollout`` at the main configuration (pooled
+    POOL_REFILL/REFILL_PERIOD, B=NUM_ENVS) for PROFILE_STEPS steps with a
+    trace: the obs_gather kernel among the trace's kernels, once per
+    observation of the traced run."""
+    import tempfile
+
+    from minigrid_tpu_torch.tools import profile
+
+    zero_counts(counters)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = profile.profile_rollout(ENV_ID, NUM_ENVS, PROFILE_STEPS, tmp,
+                                      reset_strategy="pooled", pool_refill=POOL_REFILL,
+                                      refill_period=REFILL_PERIOD, device=dev)
+        rows = profile.top_kernels(tmp, None)
+    launches = read_counts(counters)
+    want = {"obs_gather": 3 * (PROFILE_STEPS + 1), "fused_step": 0}  # three runs
+    if launches != want:
+        raise AssertionError(f"(b) launches {launches}, expected {want}")
+    if res["kernels"] != rows[:15]:
+        raise AssertionError("(b) top_kernels does not read the run's trace")
+    gathers = [(rank, row) for rank, row in enumerate(rows, 1)
+               if "obs_gather_kernel" in row[0]]
+    if [row[2] for _, row in gathers] != [PROFILE_STEPS + 1]:
+        raise AssertionError(f"(b) the trace's obs_gather rows: {gathers}")
+    rank, (_, gather_ms, _) = gathers[0]
+    log(f"  (b) profile_rollout {ENV_ID} B={NUM_ENVS} pooled {POOL_REFILL}/"
+        f"{REFILL_PERIOD}, {PROFILE_STEPS} steps: {res['steps_per_sec']:.0f} env-steps/s, "
+        f"traced {res['launches_per_step']:.1f} launches a step, device idle share "
+        f"{res['device_idle_share']:.3f}; obs_gather_kernel rank {rank} of {len(rows)} "
+        f"kernels, {gather_ms:.3f} ms over {PROFILE_STEPS + 1} calls [{card}]")
+    for name, ms, calls in rows[:5]:
+        log(f"      {ms:9.3f} ms  x{calls:6d}  {name[:90]}")
+    return {**{k: res[k] for k in ("steps_per_sec", "launches_per_step",
+                                   "device_idle_share")},
+            "top5": rows[:5], "gather_rank": rank, "gather_ms": gather_ms}
+
+
+def drive_autotune(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (c): ``autotune`` on the main id at B=NUM_ENVS over its
+    AUTOTUNE_STEPS-step rollouts: every candidate measured on the card."""
+    from minigrid_tpu_torch.tools import autotune
+
+    cands = autotune.candidates(NUM_ENVS, False)
+    zero_counts(counters)
+    res = autotune.autotune(ENV_ID, NUM_ENVS, AUTOTUNE_STEPS, device=dev)
+    launches = read_counts(counters)
+    if [row[0] for row in res["table"]] != [c.label() for c in cands]:
+        raise AssertionError(f"(c) not every candidate measured: {res['table']}")
+    # each candidate: two runs, each a reset and AUTOTUNE_STEPS steps
+    want = {"obs_gather": 2 * (AUTOTUNE_STEPS + 1) * len(cands), "fused_step": 0}
+    if launches != want:
+        raise AssertionError(f"(c) launches {launches}, expected {want}")
+    log(f"  (c) autotune {ENV_ID} B={NUM_ENVS}, {AUTOTUNE_STEPS} steps: {len(cands)} "
+        f"candidates measured, best {res['reset_strategy']} (C={res['pool_refill']}, "
+        f"K={res['refill_period']}) at {res['steps_per_sec']:.0f} env-steps/s, fresh "
+        f"{res['fresh_frac']}; obs_gather {launches['obs_gather']} [{card}]")
+    return res
+
+
+def drive_sweep(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (d): ``battery_sweep.main --quick`` on the card into a file
+    seeded with every module but SWEEP_MODULES, which its resume rule then
+    runs (256 envs x 64 steps): the gate first, then four rows naming the
+    card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from minigrid_tpu_torch.tools import battery_sweep
+
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/sweep.jsonl"
+        with open(path, "w") as f:
+            for module, _ in battery_sweep.SWEEP:
+                if module not in SWEEP_MODULES:
+                    f.write(json.dumps({"module": module}) + "\n")
+        zero_counts(counters)
+        with contextlib.redirect_stderr(err):
+            battery_sweep.main([path, "--quick"])
+        launches = read_counts(counters)
+        with open(path) as f:
+            rows = [json.loads(line) for line in f][len(battery_sweep.SWEEP)
+                                                    - len(SWEEP_MODULES):]
+    if "device kernel gate ok" not in err.getvalue():
+        raise AssertionError(f"(d) the gate did not run: {err.getvalue()}")
+    kind = torch.cuda.get_device_name(dev)
+    if ([r["module"] for r in rows] != list(SWEEP_MODULES)
+            or any("error" in r or r["device"] != kind for r in rows)):
+        raise AssertionError(f"(d) rows: {rows}")
+    # the gate's launch, then two runs of a reset and 64 steps a row; the RGB
+    # wrapper's observation gathers twice (its POV render's own view)
+    want = 1 + sum(2 * 65 * (2 if r["obs"] == "rgb" else 1) for r in rows)
+    if launches != {"obs_gather": want, "fused_step": 0}:
+        raise AssertionError(f"(d) launches {launches}, expected {want} obs_gather")
+    for r in rows:
+        log(f"  (d) sweep {r['module']}: {r['env']} {r['strategy']} "
+            f"(refill {r['pool_refill']}, period {r['refill_period']}, obs {r['obs']}) "
+            f"{r['num_envs']} envs x {r['steps']} steps: {r['steps_per_sec']} env-steps/s, "
+            f"fresh {r['fresh_frac']} [{card}]")
+    log(f"  (d) the gate ran first; obs_gather {launches['obs_gather']}")
+    return {r["module"]: r["steps_per_sec"] for r in rows}
+
+
+def drive_docs(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (e): ``build_pages`` with a frame of every family on the
+    card; DOC_FAMILIES' PNGs and a GIF_FRAMES-frame GIF equal to the CPU's
+    byte for byte; ``build_site`` over the pages."""
+    import collections
+    import os
+    import tempfile
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.registry import spec
+    from minigrid_tpu_torch.tools import gen_docs, gen_site
+
+    families = collections.Counter(spec(i).cls.__name__
+                                   for i in minigrid_tpu_torch.registered_ids())
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        pages = gen_docs.build_pages(with_images=True, out_dir=f"{tmp}/card", device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_counts(counters)
+        # a reset, then the frame's highlight (the view's cells) a family
+        want = {"obs_gather": 2 * len(families), "fused_step": 0}
+        if len(pages) != len(families) or launches != want:
+            raise AssertionError(f"(e) {len(pages)} pages, launches {launches}, "
+                                 f"expected {want}")
+        os.makedirs(f"{tmp}/cpu/img")
+        for name in families:  # every other family's frame is there already
+            if name not in DOC_FAMILIES:
+                open(f"{tmp}/cpu/img/{name}.png", "wb").close()
+        gen_docs.build_pages(with_images=True, out_dir=f"{tmp}/cpu", device="cpu")
+        for name in DOC_FAMILIES:
+            with open(f"{tmp}/card/img/{name}.png", "rb") as a, \
+                    open(f"{tmp}/cpu/img/{name}.png", "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"(e) {name}.png differs card vs CPU")
+        for where in ("card", "cpu"):
+            gen_docs.gen_gif("MiniGrid-Empty-5x5-v0", f"{tmp}/{where}.gif",
+                             num_frames=GIF_FRAMES, device=dev if where == "card" else "cpu")
+        with open(f"{tmp}/card.gif", "rb") as a, open(f"{tmp}/cpu.gif", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("(e) the GIF differs card vs CPU")
+        for name, page in pages.items():
+            with open(f"{tmp}/card/{name}.md", "w") as f:
+                f.write(page)
+        site = gen_site.build_site(f"{tmp}/card", f"{tmp}/site")
+        if site != len(pages) or not os.path.exists(f"{tmp}/site/index.html"):
+            raise AssertionError(f"(e) build_site wrote {site} pages")
+    log(f"  (e) build_pages: {len(pages)} pages with a frame each in {seconds:.1f} s "
+        f"({seconds / len(pages) * 1e3:.1f} ms a family), obs_gather "
+        f"{launches['obs_gather']}; PNGs of {', '.join(DOC_FAMILIES)} and a "
+        f"{GIF_FRAMES}-frame GIF card == CPU byte for byte; build_site {site} pages [{card}]")
+    return {"pages": len(pages), "seconds": seconds, "site_pages": site}
+
+
+def drive_manual_control(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (f): ``ManualControl`` with a fake window under MANUAL_KEYS
+    on the card and on the CPU: every caption and frame equal."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.tools.manual_control import ManualControl
+
+    class Window:
+        def __init__(self):
+            self.images, self.captions, self.handler = [], [], None
+
+        def reg_key_handler(self, handler):
+            self.handler = handler
+
+        def show_img(self, img):
+            self.images.append(np.asarray(img))
+
+        def set_caption(self, text):
+            self.captions.append(text)
+
+    class Key:
+        def __init__(self, key):
+            self.key = key
+
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        env = minigrid_tpu_torch.make("MiniGrid-Empty-5x5-v0")
+        calls = counted(env, "reset", "step", "get_frame")
+        window = Window()
+        zero_counts(counters)
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            mc = ManualControl(env, seed=3, window=window, device=where)
+            mc.reset()
+            for key in MANUAL_KEYS:
+                window.handler(Key(key))
+        runs.append((window, printed.getvalue(), calls, read_counts(counters)))
+    (card_win, card_out, calls, launches), (cpu_win, cpu_out, _, _) = runs
+    if (card_win.captions != cpu_win.captions or card_out != cpu_out
+            or len(card_win.images) != len(cpu_win.images)
+            or any(not np.array_equal(a, b) for a, b in zip(card_win.images, cpu_win.images))):
+        raise AssertionError("(f) ManualControl differs card vs CPU")
+    want = {"obs_gather": calls["reset"] + calls["step"] + calls["get_frame"], "fused_step": 0}
+    if launches != want:
+        raise AssertionError(f"(f) launches {launches}, expected {want}")
+    log(f"  (f) ManualControl, keys {list(MANUAL_KEYS)}: {len(card_win.images)} frames "
+        f"and {len(card_win.captions)} captions card == CPU; obs_gather "
+        f"{launches['obs_gather']} (one a reset, step and frame) [{card}]")
+    return {"frames": len(card_win.images)}
+
+
+def drive_smoke(dev, counters: dict, card: str) -> dict:
+    """Phase 4j (g): ``tools/smoke.run_smoke`` on the card: the gather check
+    over the plain version and the kernel, the lockstep (skipped without the
+    reference) and the kernel gate at B=4096."""
+    import contextlib
+    import io
+
+    from minigrid_tpu_torch.tools import smoke
+
+    zero_counts(counters)
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        smoke.run_smoke(device=dev)
+    launches = read_counts(counters)
+    if out.getvalue().splitlines()[-1:] != ["SMOKE OK"] or "gate ok" not in err.getvalue():
+        raise AssertionError(f"(g) run_smoke: {out.getvalue()} {err.getvalue()}")
+    if launches != {"obs_gather": 2, "fused_step": 0}:  # the check's and the gate's
+        raise AssertionError(f"(g) launches {launches}")
+    notes = "; ".join(line.removeprefix("smoke: ") for line in err.getvalue().splitlines())
+    log(f"  (g) run_smoke: SMOKE OK ({notes}); obs_gather {launches['obs_gather']} [{card}]")
+    return {"lockstep": "lockstep skipped" not in err.getvalue()}
+
+
+def drive_host_tools(dev, counters: dict, card: str) -> dict:
+    """Phase 4j: (a) the oracle and the demos; (b) ``profile_rollout``; (c)
+    ``autotune``; (d) the battery sweep; (e) ``gen_docs`` and ``gen_site``;
+    (f) ``ManualControl``; (g) ``run_smoke``.  Returns what PERF.md reads."""
+    out = {"seconds": {}}
+    for part, fn in (("oracle", drive_oracle), ("profile", drive_profile),
+                     ("autotune", drive_autotune), ("sweep", drive_sweep),
+                     ("docs", drive_docs), ("manual", drive_manual_control),
+                     ("smoke", drive_smoke)):
+        t0 = time.perf_counter()
+        out[part] = fn(dev, counters, card)
+        out["seconds"][part] = time.perf_counter() - t0
+    log(f"  phase 4j seconds: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
 # -- phase 5: times ---------------------------------------------------------------
 
 def gather_bound_ms(inputs: dict) -> tuple[float, str, dict]:
@@ -3008,6 +3366,11 @@ def main() -> int:
     t0 = time.perf_counter()
     drive_host_surface(dev, counters, card)
     log(f"  the host-surface phase took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4j: the host tools")
+    t0 = time.perf_counter()
+    drive_host_tools(dev, counters, card)
+    log(f"  the host-tools phase took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: times")
     times = time_gather(obs_gather, inputs)

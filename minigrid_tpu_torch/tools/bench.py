@@ -270,12 +270,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# the runtime and driver calls that launch a kernel
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
 def _launches(prof, averages=None) -> int:
     """Kernel launches in a trace (``averages``: its ``key_averages()``, if
     already made: summarising a long trace takes seconds)."""
     averages = prof.key_averages() if averages is None else averages
-    return sum(e.count for e in averages if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return sum(e.count for e in averages if e.key in LAUNCH_CALLS)
 
 
 def _layers(venv: VectorEnv, state: PooledState, key: torch.Tensor,
@@ -318,9 +321,9 @@ def _layers(venv: VectorEnv, state: PooledState, key: torch.Tensor,
     return out
 
 
-def _trace(body, num_steps: int, top: int) -> dict:
-    """Run ``body()`` (``num_steps`` steps ending in a host fetch) under
-    ``torch.profiler`` and summarise the device's side of it."""
+def record(body):
+    """Run ``body()`` (work ending in a host fetch) under ``torch.profiler``
+    with CPU and CUDA activity: (the profile, the wall seconds of ``body``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -328,6 +331,13 @@ def _trace(body, num_steps: int, top: int) -> dict:
         t0 = time.perf_counter()
         body()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _trace(body, num_steps: int, top: int) -> dict:
+    """Run ``body()`` (``num_steps`` steps ending in a host fetch) under
+    :func:`record` and summarise the device's side of it."""
+    prof, wall = record(body)
     averages = prof.key_averages()
     kernels, launches = [], _launches(prof, averages)
     for e in averages:

@@ -22,40 +22,45 @@ from minigrid_tpu_torch.parallel.vector import VectorEnv
 from minigrid_tpu_torch.tools import bench
 
 
+def random_rollout(venv: VectorEnv, seed: int, num_steps: int,
+                   refill_period: int = 1) -> tuple[torch.Tensor, object]:
+    """One rollout of random actions from the threefry twin, from a reset
+    drawn from ``seed``: (the running checksum of
+    :func:`minigrid_tpu_torch.tools.bench.fold`, a device scalar; the final
+    state).  ``refill_period=K`` is :func:`~minigrid_tpu_torch.tools.bench.loop`:
+    K consume-only steps, then K windows refilled (the pooled strategy
+    only); ``refill_period=1`` steps ``venv.step`` with any strategy."""
+    if refill_period > 1 and venv.reset_strategy != "pooled":
+        raise ValueError("refill_period requires the pooled reset strategy")
+    if num_steps % refill_period:
+        raise ValueError(f"num_steps={num_steps} is not a multiple of "
+                         f"refill_period={refill_period}")
+    key = rng.PRNGKey(seed, venv.device)
+    if refill_period > 1:
+        return bench.run(venv, key, num_steps, refill_period)
+    key, k_reset = rng.split(key).unbind(0)
+    _, state = venv.reset(k_reset)
+    return bench.loop_steps(venv, state, key=key, num_steps=num_steps)
+
+
 def timed_rollout(venv: VectorEnv, num_steps: int, refill_period: int = 1,
                   seed: int = 0, unroll: int = 1, with_stats: bool = False):
-    """(env-steps/s, first-run seconds): a rollout of random actions from
-    the threefry twin, run twice, the second timed, by the port's timing
-    protocol (:func:`minigrid_tpu_torch.tools.bench.fold` folds the rewards,
-    episode ends and an observation checksum into one device scalar every
-    step; the timer stops after it reaches the host).  The first run's
-    seconds stand where the JAX package reports its compile.
-    ``refill_period=K`` is :func:`~minigrid_tpu_torch.tools.bench.loop`: K
-    consume-only steps, then K windows refilled (the pooled strategy only);
-    ``refill_period=1`` steps ``venv.step`` with any strategy.  ``unroll`` is
-    the JAX ``lax.scan`` knob, accepted and ignored.
+    """(env-steps/s, first-run seconds): :func:`random_rollout` run twice,
+    the second timed, by the port's timing protocol (the checksum folds the
+    rewards, episode ends and an observation checksum into one device scalar
+    every step; the timer stops after it reaches the host).  The first
+    run's seconds stand where the JAX package reports its compile.
+    ``unroll`` is the JAX ``lax.scan`` knob, accepted and ignored.
 
     ``with_stats=True`` returns a third element from the timed run:
     ``resets`` (auto-resets served) and ``fresh_frac`` (the fraction served
     a never-used level; 1.0 for the strategies that always regenerate, None
     when no reset occurred)."""
     del unroll
-    if refill_period > 1 and venv.reset_strategy != "pooled":
-        raise ValueError("refill_period requires the pooled reset strategy")
-    if num_steps % refill_period:
-        raise ValueError(f"num_steps={num_steps} is not a multiple of "
-                         f"refill_period={refill_period}")
-
-    def run(s):
-        key = rng.PRNGKey(s, venv.device)
-        if refill_period > 1:
-            return bench.run(venv, key, num_steps, refill_period)
-        key, k_reset = rng.split(key).unbind(0)
-        _, state = venv.reset(k_reset)
-        return bench.loop_steps(venv, state, key=key, num_steps=num_steps)
-
-    first_s, _ = bench._timed(lambda i: run(seed), 1)
-    dt, state = bench._timed(lambda i: run(seed + 1), 1)
+    first_s, _ = bench._timed(lambda i: random_rollout(venv, seed, num_steps,
+                                                       refill_period), 1)
+    dt, state = bench._timed(lambda i: random_rollout(venv, seed + 1, num_steps,
+                                                      refill_period), 1)
     sps = venv.num_envs * num_steps / dt
     if not with_stats:
         return sps, first_s
