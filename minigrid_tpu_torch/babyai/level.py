@@ -17,6 +17,12 @@ Counterpart of ``minigrid_tpu/babyai/level.py``:
 
 The observation's ``mission`` is the flattened instruction, int32[B, 43];
 :meth:`BabyAILevel.mission_text` rebuilds the reference's string.
+
+Tracing (``utils/trace.py``) sees ``place_agent_any`` as the span
+``roomgrid.place_agent``, ``objs_reachable`` as ``babyai.reachable``,
+``_finalize`` as ``babyai.finalize`` and the verifier's ``post_step`` as
+``babyai.verify``; the counter ``reset.draws`` counts the rows drawn over
+:meth:`BabyAILevel.generate`'s passes.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from minigrid_tpu_torch.core.state import (
     map_tree,
     resolve_device,
 )
+from minigrid_tpu_torch.utils import trace
 
 MISSION_LEN = 43
 
@@ -136,6 +143,7 @@ class BabyAILevel(RoomGridEnv):
         idx = torch.arange(keys.shape[0], device=keys.device)
         drawn = None
         for _ in range(self.max_gen_attempts):
+            trace.count("reset.draws", idx.shape[0])
             chain, sub = rng.split(chain).unbind(1)
             b, instr, valid = self.gen_level(sub, params)
             part = {"b": b, "instr": instr}
@@ -163,27 +171,28 @@ class BabyAILevel(RoomGridEnv):
         """The verifier state, the articles and the step limit of each
         level: one pass of 2K desc-match planes serves both the tracked
         planes and the 'a'/'the' flags."""
-        grid, pos, direction = b["grid"], b["agent_pos"], b["agent_dir"]
-        n, k = instr["kinds"].shape
-        room_mask = self.agent_room_mask(b, params)
-        masks = V.desc_match_mask(grid, torch.cat([instr["d1"], instr["d2"]], dim=1),
-                                  pos, direction, room_mask)
-        tracked1, tracked2 = masks[:, :k], masks[:, k:]
-        plural = masks.sum(dim=(2, 3)) > 1
-        # interleaved [d1_0, d2_0, d1_1, d2_1, ...]
-        articles = torch.stack([plural[:, :k], plural[:, k:]], dim=2).reshape(n, 2 * k)
-        vs = V.init_verifier_state(grid, instr, pos, direction, room_mask,
-                                   masks=(tracked1, tracked2))
-        if self.fixed_max_steps:
-            max_steps = 0  # params.max_steps
-        else:
-            max_steps = V.num_navs(instr) * (self.room_size**2 * self.num_rows
-                                             * self.num_cols)
-        state = base_state(grid, pos, direction, rng=k_state,
-                           mission=flatten_instr(instr, articles),
-                           box_contains=b.get("box_contains"), max_steps=max_steps,
-                           extra={"instr": instr, "vs": vs})
-        return self.post_generate(state, b, params)
+        with trace.span("babyai.finalize"):
+            grid, pos, direction = b["grid"], b["agent_pos"], b["agent_dir"]
+            n, k = instr["kinds"].shape
+            room_mask = self.agent_room_mask(b, params)
+            masks = V.desc_match_mask(grid, torch.cat([instr["d1"], instr["d2"]], dim=1),
+                                      pos, direction, room_mask)
+            tracked1, tracked2 = masks[:, :k], masks[:, k:]
+            plural = masks.sum(dim=(2, 3)) > 1
+            # interleaved [d1_0, d2_0, d1_1, d2_1, ...]
+            articles = torch.stack([plural[:, :k], plural[:, k:]], dim=2).reshape(n, 2 * k)
+            vs = V.init_verifier_state(grid, instr, pos, direction, room_mask,
+                                       masks=(tracked1, tracked2))
+            if self.fixed_max_steps:
+                max_steps = 0  # params.max_steps
+            else:
+                max_steps = V.num_navs(instr) * (self.room_size**2 * self.num_rows
+                                                 * self.num_cols)
+            state = base_state(grid, pos, direction, rng=k_state,
+                               mission=flatten_instr(instr, articles),
+                               box_contains=b.get("box_contains"), max_steps=max_steps,
+                               extra={"instr": instr, "vs": vs})
+            return self.post_generate(state, b, params)
 
     def post_generate(self, state: EnvState, b: dict, params: EnvParams) -> EnvState:
         """Hook for levels that change the state after the reset."""
@@ -194,18 +203,19 @@ class BabyAILevel(RoomGridEnv):
         """The agent in a uniform room (one ``categorical`` over the rooms),
         then placed there; ``exclude_room`` (i, j), a value or one per env,
         takes a room out of the draw."""
-        k_room, k_pos = rng.split(keys).unbind(1)
-        n_rooms = self.num_rows * self.num_cols
-        logits = torch.zeros((n_rooms,), device=keys.device)
-        if exclude_room is not None:
-            i, j = exclude_room
-            r = j * self.num_cols + i
-            slots = torch.arange(n_rooms, device=keys.device)
-            r = r[:, None] if isinstance(r, torch.Tensor) else r
-            logits = torch.where(slots == r, -torch.inf, 0.0)
-        room = rng.categorical(k_room, logits)
-        return self.place_agent_in_room(b, k_pos, params, room % self.num_cols,
-                                        room // self.num_cols)
+        with trace.span("roomgrid.place_agent"):
+            k_room, k_pos = rng.split(keys).unbind(1)
+            n_rooms = self.num_rows * self.num_cols
+            logits = torch.zeros((n_rooms,), device=keys.device)
+            if exclude_room is not None:
+                i, j = exclude_room
+                r = j * self.num_cols + i
+                slots = torch.arange(n_rooms, device=keys.device)
+                r = r[:, None] if isinstance(r, torch.Tensor) else r
+                logits = torch.where(slots == r, -torch.inf, 0.0)
+            room = rng.categorical(k_room, logits)
+            return self.place_agent_in_room(b, k_pos, params, room % self.num_cols,
+                                            room // self.num_cols)
 
     def finish_level(self, b: dict, instr: dict, params: EnvParams, valid=True
                      ) -> tuple[dict, dict, torch.Tensor]:
@@ -228,13 +238,14 @@ class BabyAILevel(RoomGridEnv):
     # ------------------------------------------------------------------ #
 
     def post_step(self, state, action, reward, terminated, outcome, params):
-        vs, status = V.verify_step(
-            state.extra["vs"], state.extra["instr"], state.grid, state.agent_pos,
-            state.agent_dir, action, outcome, done_actions=params.babyai_done_actions)
-        state = state.replace(extra={**state.extra, "vs": vs})
-        reward = torch.where(status == V.SUCCESS, self.task_reward(state, params),
-                             torch.where(status == V.FAILURE, 0.0, reward))
-        return state, reward, terminated | (status != V.CONTINUE)
+        with trace.span("babyai.verify"):
+            vs, status = V.verify_step(
+                state.extra["vs"], state.extra["instr"], state.grid, state.agent_pos,
+                state.agent_dir, action, outcome, done_actions=params.babyai_done_actions)
+            state = state.replace(extra={**state.extra, "vs": vs})
+            reward = torch.where(status == V.SUCCESS, self.task_reward(state, params),
+                                 torch.where(status == V.FAILURE, 0.0, reward))
+            return state, reward, terminated | (status != V.CONTINUE)
 
     # ------------------------------------------------------------------ #
     # validation
@@ -248,31 +259,32 @@ class BabyAILevel(RoomGridEnv):
         cells and rounds that up to a multiple of 4 on larger ones; the port
         runs the same count, which covers every shortest path a BabyAI level
         can hold, and never reads a convergence flag on the host."""
-        grid = b["grid"]
-        _, w, h = grid.shape
-        types = grid & 0xFF
-        empty = types == C.OBJECT_TO_IDX["empty"]
-        wall = types == C.OBJECT_TO_IDX["wall"]
-        expandable = empty | (types == C.OBJECT_TO_IDX["door"])
-        dev = grid.device
-        xs = torch.arange(w, device=dev)[:, None]
-        ys = torch.arange(h, device=dev)[None, :]
-        pos = b["agent_pos"]
-        agent_cell = (xs == pos[:, 0, None, None]) & (ys == pos[:, 1, None, None])
-        expandable = expandable | agent_cell
-        # the edge masks drop what the rolls wrap around
-        edges = ((1, 1, xs != 0), (-1, 1, xs != w - 1), (1, 2, ys != 0),
-                 (-1, 2, ys != h - 1))
-        trips = 2 * (w + h)
-        if w * h > 144:
-            trips = (trips + 3) // 4 * 4
-        reach = agent_cell
-        for _ in range(trips):
-            src = reach & expandable
-            for shift, dim, keep in edges:
-                reach = reach | (torch.roll(src, shift, dim) & keep)
-        objects = ~empty & ~wall
-        return (~objects | reach).flatten(1).all(dim=1)
+        with trace.span("babyai.reachable"):
+            grid = b["grid"]
+            _, w, h = grid.shape
+            types = grid & 0xFF
+            empty = types == C.OBJECT_TO_IDX["empty"]
+            wall = types == C.OBJECT_TO_IDX["wall"]
+            expandable = empty | (types == C.OBJECT_TO_IDX["door"])
+            dev = grid.device
+            xs = torch.arange(w, device=dev)[:, None]
+            ys = torch.arange(h, device=dev)[None, :]
+            pos = b["agent_pos"]
+            agent_cell = (xs == pos[:, 0, None, None]) & (ys == pos[:, 1, None, None])
+            expandable = expandable | agent_cell
+            # the edge masks drop what the rolls wrap around
+            edges = ((1, 1, xs != 0), (-1, 1, xs != w - 1), (1, 2, ys != 0),
+                     (-1, 2, ys != h - 1))
+            trips = 2 * (w + h)
+            if w * h > 144:
+                trips = (trips + 3) // 4 * 4
+            reach = agent_cell
+            for _ in range(trips):
+                src = reach & expandable
+                for shift, dim, keep in edges:
+                    reach = reach | (torch.roll(src, shift, dim) & keep)
+            objects = ~empty & ~wall
+            return (~objects | reach).flatten(1).all(dim=1)
 
     def putnext_valid(self, b: dict, instr: dict, params: EnvParams,
                       agent_pos: torch.Tensor, agent_dir: torch.Tensor) -> torch.Tensor:

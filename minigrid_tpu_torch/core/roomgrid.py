@@ -21,6 +21,10 @@ every env) or a tensor of one value per env.  ``connect_all`` is the JAX
 package's closed form: the accepted doors of the reference's rejection loop
 are the minimal connecting prefix of one random permutation of the eligible
 walls, found by Floyd–Warshall minimax passes over the room graph.
+
+Tracing (``utils/trace.py``) sees the generator's stages ``init_rooms``,
+``connect_all`` and ``add_distractors`` as the spans ``roomgrid.rooms``,
+``roomgrid.connect`` and ``roomgrid.distractors``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.sampling import SORTED_COLOR_IDS, rand_color
 from minigrid_tpu_torch.core.state import EnvParams, empty_grid, fixed_pose
+from minigrid_tpu_torch.utils import trace
 
 _DOOR = C.OBJECT_TO_IDX["door"]
 _CLOSED = C.STATE_TO_IDX["closed"]
@@ -219,37 +224,38 @@ class RoomGridEnv(Env):
         """The builder of a batch of fresh levels: every room's walls, a door
         slot drawn on every internal wall (one ``randint`` per wall class, in
         the wall order), the agent mid-grid facing right."""
-        rows, cols, s = self.num_rows, self.num_cols, self.room_size
-        dev = keys.device
-        n = keys.shape[0]
-        if (params.width, params.height) != (self.width, self.height):
-            raise ValueError("RoomGrid params must match the lattice's size")
-        _, k_h, k_v = rng.split(keys, 3).unbind(1)
-        parts = []
-        if self.num_h_walls:
-            hy = (G.const(self._h_y0, dev, torch.int32)
-                  + rng.randint(k_h, (self.num_h_walls,), 1, s - 1))
-            hx = G.const(self._h_x, dev, torch.int32).expand(n, -1)
-            parts.append(torch.stack([hx, hy], dim=-1))
-        if self.num_v_walls:
-            vx = (G.const(self._v_x0, dev, torch.int32)
-                  + rng.randint(k_v, (self.num_v_walls,), 1, s - 1))
-            vy = G.const(self._v_y, dev, torch.int32).expand(n, -1)
-            parts.append(torch.stack([vx, vy], dim=-1))
-        door_pos = (torch.cat(parts, dim=1) if parts
-                    else torch.zeros((n, 0, 2), dtype=torch.int32, device=dev))
-        mid = ((cols // 2) * (s - 1) + s // 2, (rows // 2) * (s - 1) + s // 2)
-        agent_pos, agent_dir = fixed_pose(n, mid, 0, dev)
-        grid = G.const(self._lattice, dev, torch.int32)
-        return {
-            "grid": grid.expand(n, -1, -1),
-            "door_pos": door_pos,
-            "has_door": torch.zeros((n, self.num_walls), dtype=torch.bool, device=dev),
-            "locked": torch.zeros((n, rows * cols), dtype=torch.bool, device=dev),
-            "obj_mask": torch.zeros((n, _NUM_COMBOS), dtype=torch.bool, device=dev),
-            "agent_pos": agent_pos,
-            "agent_dir": agent_dir,
-        }
+        with trace.span("roomgrid.rooms"):
+            rows, cols, s = self.num_rows, self.num_cols, self.room_size
+            dev = keys.device
+            n = keys.shape[0]
+            if (params.width, params.height) != (self.width, self.height):
+                raise ValueError("RoomGrid params must match the lattice's size")
+            _, k_h, k_v = rng.split(keys, 3).unbind(1)
+            parts = []
+            if self.num_h_walls:
+                hy = (G.const(self._h_y0, dev, torch.int32)
+                      + rng.randint(k_h, (self.num_h_walls,), 1, s - 1))
+                hx = G.const(self._h_x, dev, torch.int32).expand(n, -1)
+                parts.append(torch.stack([hx, hy], dim=-1))
+            if self.num_v_walls:
+                vx = (G.const(self._v_x0, dev, torch.int32)
+                      + rng.randint(k_v, (self.num_v_walls,), 1, s - 1))
+                vy = G.const(self._v_y, dev, torch.int32).expand(n, -1)
+                parts.append(torch.stack([vx, vy], dim=-1))
+            door_pos = (torch.cat(parts, dim=1) if parts
+                        else torch.zeros((n, 0, 2), dtype=torch.int32, device=dev))
+            mid = ((cols // 2) * (s - 1) + s // 2, (rows // 2) * (s - 1) + s // 2)
+            agent_pos, agent_dir = fixed_pose(n, mid, 0, dev)
+            grid = G.const(self._lattice, dev, torch.int32)
+            return {
+                "grid": grid.expand(n, -1, -1),
+                "door_pos": door_pos,
+                "has_door": torch.zeros((n, self.num_walls), dtype=torch.bool, device=dev),
+                "locked": torch.zeros((n, rows * cols), dtype=torch.bool, device=dev),
+                "obj_mask": torch.zeros((n, _NUM_COMBOS), dtype=torch.bool, device=dev),
+                "agent_pos": agent_pos,
+                "agent_dir": agent_dir,
+            }
 
     # ------------------------------------------------------------------ #
     # builder ops
@@ -424,53 +430,54 @@ class RoomGridEnv(Env):
         left out of the target.  ``exclude_color`` (an id, or a negative
         sentinel for none; per env or not) keeps that color off the doors.
         The JAX version's unused ``max_itrs`` argument is not carried."""
-        rows, cols, s = self.num_rows, self.num_cols, self.room_size
-        n_rooms, n_walls = rows * cols, self.num_walls
-        if n_walls == 0:  # a single room: nothing to connect
+        with trace.span("roomgrid.connect"):
+            rows, cols, s = self.num_rows, self.num_cols, self.room_size
+            n_rooms, n_walls = rows * cols, self.num_walls
+            if n_walls == 0:  # a single room: nothing to connect
+                return b
+            dev = keys.device
+            n = keys.shape[0]
+            big = n_walls + 1
+            pos = b["agent_pos"]
+            start_room = pos[:, 1] // (s - 1) * cols + pos[:, 0] // (s - 1)
+
+            k_perm, k_col = rng.split(keys).unbind(1)
+            rank = rng.permutation(k_perm, n_walls)
+            r1 = G.const(self._wall_r1, dev)
+            r2 = G.const(self._wall_r2, dev)
+            locked = b["locked"]
+            eligible = ~b["has_door"] & ~locked[:, r1] & ~locked[:, r2]
+            # existing doors connect for free, eligible walls open at their rank,
+            # the rest never
+            edge = torch.where(b["has_door"], -1, torch.where(eligible, rank, big))
+            pair = G.const(self._wall_pair_mask, dev, torch.bool)
+            dist = torch.where(pair, edge[:, :, None, None], big).amin(dim=1)
+            eye = G.const(np.eye(n_rooms, dtype=bool), dev, torch.bool)
+            dist = torch.where(eye, -1, dist).to(torch.int32)
+            for k in range(n_rooms):
+                via = torch.maximum(dist[:, :, k:k + 1], dist[:, k:k + 1, :])
+                dist = torch.minimum(dist, via)
+            bottleneck = G.take_row(dist, start_room)  # [B, n_rooms]
+            prefix = torch.where(bottleneck < big, bottleneck, -1).amax(dim=1)
+            new_door = eligible & (rank <= prefix[:, None])
+
+            sorted_ids = G.const(SORTED_COLOR_IDS, dev, torch.int32)
+            if exclude_color is None:
+                colors = rand_color(rng.split(k_col, n_walls))
+            else:
+                # uniform over the colors but exclude_color while it is a real
+                # color id; a negative sentinel keeps the whole palette
+                active = per_env(exclude_color, n, dev) > 0
+                ex_rank = per_env(color_rank(per_env(exclude_color, n, dev), dev), n, dev)
+                r = rng.randint(k_col, (n_walls,), 0,
+                                torch.where(active, 9, 10)[:, None])
+                skip = active[:, None] & (r >= ex_rank[:, None])
+                colors = G.take_vec(sorted_ids, r + skip.to(torch.int32))
+            doors = (_DOOR | (colors.to(torch.int32) << 8) | (_CLOSED << 16))
+            b = dict(b)
+            b["grid"] = stamp_words(b["grid"], b["door_pos"], doors, new_door)
+            b["has_door"] = b["has_door"] | new_door
             return b
-        dev = keys.device
-        n = keys.shape[0]
-        big = n_walls + 1
-        pos = b["agent_pos"]
-        start_room = pos[:, 1] // (s - 1) * cols + pos[:, 0] // (s - 1)
-
-        k_perm, k_col = rng.split(keys).unbind(1)
-        rank = rng.permutation(k_perm, n_walls)
-        r1 = G.const(self._wall_r1, dev)
-        r2 = G.const(self._wall_r2, dev)
-        locked = b["locked"]
-        eligible = ~b["has_door"] & ~locked[:, r1] & ~locked[:, r2]
-        # existing doors connect for free, eligible walls open at their rank,
-        # the rest never
-        edge = torch.where(b["has_door"], -1, torch.where(eligible, rank, big))
-        pair = G.const(self._wall_pair_mask, dev, torch.bool)
-        dist = torch.where(pair, edge[:, :, None, None], big).amin(dim=1)
-        eye = G.const(np.eye(n_rooms, dtype=bool), dev, torch.bool)
-        dist = torch.where(eye, -1, dist).to(torch.int32)
-        for k in range(n_rooms):
-            via = torch.maximum(dist[:, :, k:k + 1], dist[:, k:k + 1, :])
-            dist = torch.minimum(dist, via)
-        bottleneck = G.take_row(dist, start_room)  # [B, n_rooms]
-        prefix = torch.where(bottleneck < big, bottleneck, -1).amax(dim=1)
-        new_door = eligible & (rank <= prefix[:, None])
-
-        sorted_ids = G.const(SORTED_COLOR_IDS, dev, torch.int32)
-        if exclude_color is None:
-            colors = rand_color(rng.split(k_col, n_walls))
-        else:
-            # uniform over the colors but exclude_color while it is a real
-            # color id; a negative sentinel keeps the whole palette
-            active = per_env(exclude_color, n, dev) > 0
-            ex_rank = per_env(color_rank(per_env(exclude_color, n, dev), dev), n, dev)
-            r = rng.randint(k_col, (n_walls,), 0,
-                            torch.where(active, 9, 10)[:, None])
-            skip = active[:, None] & (r >= ex_rank[:, None])
-            colors = G.take_vec(sorted_ids, r + skip.to(torch.int32))
-        doors = (_DOOR | (colors.to(torch.int32) << 8) | (_CLOSED << 16))
-        b = dict(b)
-        b["grid"] = stamp_words(b["grid"], b["door_pos"], doors, new_door)
-        b["has_door"] = b["has_door"] | new_door
-        return b
 
     def add_distractors(self, b: dict, keys: torch.Tensor, params: EnvParams,
                         i=None, j=None, num_distractors: int = 10,
@@ -481,39 +488,40 @@ class RoomGridEnv(Env):
         (kind, color) combos not yet present.  ``color_override`` forces the
         written color while the draws stay as they are.  Returns (builder,
         int32[B, num, 2] (type id, color id), int32[B, num, 2] positions)."""
-        dev = keys.device
-        n = keys.shape[0]
-        single_room = self.num_rows == 1 and self.num_cols == 1
-        if (single_room or (i is not None and j is not None)) and num_distractors:
-            return self._add_distractors_oneshot(
-                b, keys, params, 0 if i is None else i, 0 if j is None else j,
-                num_distractors, all_unique, enabled, color_override)
-        if not num_distractors:
-            none = torch.zeros((n, 0, 2), dtype=torch.int32, device=dev)
-            return b, none, none.clone()
+        with trace.span("roomgrid.distractors"):
+            dev = keys.device
+            n = keys.shape[0]
+            single_room = self.num_rows == 1 and self.num_cols == 1
+            if (single_room or (i is not None and j is not None)) and num_distractors:
+                return self._add_distractors_oneshot(
+                    b, keys, params, 0 if i is None else i, 0 if j is None else j,
+                    num_distractors, all_unique, enabled, color_override)
+            if not num_distractors:
+                none = torch.zeros((n, 0, 2), dtype=torch.int32, device=dev)
+                return b, none, none.clone()
 
-        # the JAX package's lax.scan: each draw consumes the builder the last
-        # one produced, and the key chain is split(key, 5)[0] per draw
-        sorted_ids = G.const(SORTED_COLOR_IDS, dev, torch.int32)
-        kind_ids = G.const(_KIND_IDS, dev, torch.int32)
-        added, positions = [], []
-        for _ in range(num_distractors):
-            keys, k_tc, k_i, k_j, k_pos = rng.split(keys, 5).unbind(1)
-            if all_unique:
-                logits = torch.where(b["obj_mask"], -torch.inf, 0.0)
-                combo = rng.categorical(k_tc, logits)
-            else:
-                combo = rng.randint(k_tc, (), 0, _NUM_COMBOS)
-            kind_local = combo // 10
-            color = G.take1(sorted_ids, combo % 10)
-            write_color = color if color_override is None else color_override
-            ri = rng.randint(k_i, (), 0, self.num_cols) if i is None else i
-            rj = rng.randint(k_j, (), 0, self.num_rows) if j is None else j
-            b, _, pos = self.add_object(b, k_pos, params, ri, rj, kind=kind_local,
-                                        color=write_color, enabled=enabled)
-            added.append(torch.stack([G.take1(kind_ids, kind_local), color], dim=1))
-            positions.append(pos)
-        return b, torch.stack(added, dim=1), torch.stack(positions, dim=1)
+            # the JAX package's lax.scan: each draw consumes the builder the last
+            # one produced, and the key chain is split(key, 5)[0] per draw
+            sorted_ids = G.const(SORTED_COLOR_IDS, dev, torch.int32)
+            kind_ids = G.const(_KIND_IDS, dev, torch.int32)
+            added, positions = [], []
+            for _ in range(num_distractors):
+                keys, k_tc, k_i, k_j, k_pos = rng.split(keys, 5).unbind(1)
+                if all_unique:
+                    logits = torch.where(b["obj_mask"], -torch.inf, 0.0)
+                    combo = rng.categorical(k_tc, logits)
+                else:
+                    combo = rng.randint(k_tc, (), 0, _NUM_COMBOS)
+                kind_local = combo // 10
+                color = G.take1(sorted_ids, combo % 10)
+                write_color = color if color_override is None else color_override
+                ri = rng.randint(k_i, (), 0, self.num_cols) if i is None else i
+                rj = rng.randint(k_j, (), 0, self.num_rows) if j is None else j
+                b, _, pos = self.add_object(b, k_pos, params, ri, rj, kind=kind_local,
+                                            color=write_color, enabled=enabled)
+                added.append(torch.stack([G.take1(kind_ids, kind_local), color], dim=1))
+                positions.append(pos)
+            return b, torch.stack(added, dim=1), torch.stack(positions, dim=1)
 
     def _add_distractors_oneshot(self, b: dict, keys: torch.Tensor,
                                  params: EnvParams, i, j, num: int,

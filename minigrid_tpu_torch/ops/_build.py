@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from minigrid_tpu_torch.utils import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -119,6 +121,8 @@ def check_launch(tile_bytes: int, tile: int, n: int, words_per_env: int,
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    build_all()
-    return ctypes.CDLL(str(library_path(CSRC / f"{name}.cu")))
+    """The loaded library of ``csrc/<name>.cu``, built first if needed (the
+    span ``ops.load``)."""
+    with trace.span("ops.load"):
+        build_all()
+        return ctypes.CDLL(str(library_path(CSRC / f"{name}.cu")))

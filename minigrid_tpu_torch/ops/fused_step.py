@@ -53,6 +53,7 @@ from minigrid_tpu_torch.core.state import EnvParams, base_state, resolve_device
 from minigrid_tpu_torch.core.step import _fma_f32, dir_to_vec
 from minigrid_tpu_torch.ops._build import check_launch, check_tensor
 from minigrid_tpu_torch.ops.obs_gather import gather_view_plain
+from minigrid_tpu_torch.utils import trace
 
 A_X, A_Y, A_DIR, A_CNT, A_CTYP, A_CCOL = range(6)
 A_WIDTH = 8
@@ -369,7 +370,8 @@ class FusedVectorEnv:
     planes above.  ``reset`` generates with ``env.reset`` (the observation
     through the ``obs_gather`` kernel on a card); each ``step`` is one
     ``fused_step`` launch and leaves the given ``fs`` valid.  Runs on CUDA
-    unless ``device`` names another."""
+    unless ``device`` names another.  Tracing sees ``reset`` and ``step`` as
+    the spans ``fused.reset`` and ``fused.step``."""
 
     def __init__(self, env, num_envs: int, params: EnvParams | None = None,
                  device=None):
@@ -380,24 +382,26 @@ class FusedVectorEnv:
         self.device = resolve_device(device)
 
     def reset(self, key: torch.Tensor):
-        key = key.to(self.device)
-        obs, states = self.env.reset(rng.split(key, self.num_envs), self.params,
-                                     self.device)
-        fs = planes_from_states(states)
-        fs["rng"] = rng.fold_in(key, 1)
-        fs["t"] = torch.zeros((), dtype=torch.int32, device=self.device)
-        return self._obs_from(obs["image"], fs), fs
+        with trace.span("fused.reset"):
+            key = key.to(self.device)
+            obs, states = self.env.reset(rng.split(key, self.num_envs), self.params,
+                                         self.device)
+            fs = planes_from_states(states)
+            fs["rng"] = rng.fold_in(key, 1)
+            fs["t"] = torch.zeros((), dtype=torch.int32, device=self.device)
+            return self._obs_from(obs["image"], fs), fs
 
     def _obs_from(self, image: torch.Tensor, fs: dict) -> dict:
         return {"image": image, "direction": fs["agent"][:, A_DIR],
                 "mission": fs["mission"]}
 
     def step(self, fs: dict, action: torch.Tensor):
-        action = action.to(device=self.device, dtype=torch.int32)
-        grid, agent, image, reward, term, trunc, key, t = fused_step(
-            fs["grid"], fs["agent"], action, fs["rng"], fs["t"], self.spec)
-        nfs = {**fs, "grid": grid, "agent": agent, "rng": key, "t": t}
-        return self._obs_from(image, nfs), nfs, reward, term, trunc, {}
+        with trace.span("fused.step"):
+            action = action.to(device=self.device, dtype=torch.int32)
+            grid, agent, image, reward, term, trunc, key, t = fused_step(
+                fs["grid"], fs["agent"], action, fs["rng"], fs["t"], self.spec)
+            nfs = {**fs, "grid": grid, "agent": agent, "rng": key, "t": t}
+            return self._obs_from(image, nfs), nfs, reward, term, trunc, {}
 
     def to_env_states(self, fs: dict):
         """The planes -> an ``EnvState`` batch (for rendering or

@@ -22,7 +22,9 @@ chooses them unless the caller names one:
   ``step_nofill`` + ``refill(K)`` every K steps is the program the benchmark
   drives.  A family with ``generate_attempt`` (BabyAI) refills best-effort
   with ONE unvalidated draw a slot: where the draw is invalid the slot keeps
-  its previous level, and is marked fresh all the same.
+  its previous level, and is marked fresh all the same.  The trace counters
+  ``refill.draws`` and ``refill.accepted`` count a refill's draws and the
+  slots that took a new level.
 
 A wrapper's state (``wrappers.BonusState``: an ``EnvState`` and a count
 table) rides through every strategy: selects and ring copies walk into the
@@ -52,6 +54,12 @@ mirrors it on the host, so a refill reads nothing back.  ``n_fresh`` and
 
 Every random draw comes from the threefry twin, so a run is bitwise the JAX
 package's run for the same key and actions.
+
+Tracing (``utils/trace.py``, off by default) sees the public calls as the
+spans ``vector.reset``, ``vector.step``, ``vector.step_nofill`` and
+``vector.refill``, and inside them ``vector.transition`` (the family's step
+and ``post_step``), ``vector.consume`` (the ring's serve), ``vector.observe``
+(the observation) and ``vector.generate`` (the generator).
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from minigrid_tpu_torch.core.state import (
     map_fields,
     resolve_device,
 )
+from minigrid_tpu_torch.utils import trace
 
 
 def tree_select(pred: torch.Tensor, a, b):
@@ -165,13 +174,16 @@ class VectorEnv:
 
     # -- helpers -----------------------------------------------------------
     def _gen_many(self, keys: torch.Tensor) -> EnvState:
-        return self.env.generate(keys, self.params, self.device)
+        with trace.span("vector.generate"):
+            return self.env.generate(keys, self.params, self.device)
 
     def _obs(self, states: EnvState) -> dict:
-        return self.env.observation_batch(states, self.params)
+        with trace.span("vector.observe"):
+            return self.env.observation_batch(states, self.params)
 
     def _step_envs(self, envs: EnvState, action: torch.Tensor):
-        return self.env.step_state(envs, action.to(self.device), self.params)
+        with trace.span("vector.transition"):
+            return self.env.step_state(envs, action.to(self.device), self.params)
 
     def _regen_all(self, ns: EnvState, mask: torch.Tensor) -> EnvState:
         """Every env regenerated from its own stream, kept where ``mask``:
@@ -203,75 +215,79 @@ class VectorEnv:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def reset(self, key: torch.Tensor):
-        key = key.to(self.device)
-        b, big_b = self.local_envs, self.num_envs
-        if not self._pooled:
-            envs = self._gen_many(self._split_rows(key, big_b, (0,)))
-            return self._obs(envs), envs
-        _, k_gen, k_refill = rng.split(key, 3).unbind(0)
-        # one generator call covers the envs AND the initial pool fill: keys
-        # [0, B) the envs, [B, 3B) the ring's slots
-        both = self._gen_many(self._split_rows(k_gen, big_b + self.pool_size,
-                                               (0, big_b, 2 * big_b)))
-        envs = map_fields(lambda x: x[:b], both)
-        pool = map_fields(lambda x: x[b:], both)
+        with trace.span("vector.reset"):
+            key = key.to(self.device)
+            b, big_b = self.local_envs, self.num_envs
+            if not self._pooled:
+                envs = self._gen_many(self._split_rows(key, big_b, (0,)))
+                return self._obs(envs), envs
+            _, k_gen, k_refill = rng.split(key, 3).unbind(0)
+            # one generator call covers the envs AND the initial pool fill: keys
+            # [0, B) the envs, [B, 3B) the ring's slots
+            both = self._gen_many(self._split_rows(k_gen, big_b + self.pool_size,
+                                                   (0, big_b, 2 * big_b)))
+            envs = map_fields(lambda x: x[:b], both)
+            pool = map_fields(lambda x: x[b:], both)
 
-        def scalar():
-            return torch.zeros((), dtype=torch.int32, device=self.device)
+            def scalar():
+                return torch.zeros((), dtype=torch.int32, device=self.device)
 
-        tick = scalar()
-        self._tick_mirror = (tick, 0)
-        return self._obs(envs), PooledState(
-            envs=envs,
-            pool=pool,
-            fresh=torch.ones((2 * b,), dtype=torch.bool, device=self.device),
-            tick=tick,
-            key=k_refill,
-            n_fresh=scalar(),
-            n_stale=scalar(),
-        )
+            tick = scalar()
+            self._tick_mirror = (tick, 0)
+            return self._obs(envs), PooledState(
+                envs=envs,
+                pool=pool,
+                fresh=torch.ones((2 * b,), dtype=torch.bool, device=self.device),
+                tick=tick,
+                key=k_refill,
+                n_fresh=scalar(),
+                n_stale=scalar(),
+            )
 
     def step(self, state, action: torch.Tensor):
-        if not self.auto_reset:
-            next_state, reward, terminated, truncated = self._step_envs(
+        with trace.span("vector.step"):
+            if not self.auto_reset:
+                next_state, reward, terminated, truncated = self._step_envs(
+                    state, action)
+                return (self._obs(next_state), next_state, reward, terminated,
+                        truncated, {})
+            if not self._pooled:
+                next_state, reward, terminated, truncated = self._step_envs(
+                    state, action)
+                done = terminated | truncated
+                # each env's own stream: regenerate from split(rng)[0]
+                if self.reset_strategy == "conditional":
+                    new_state = self._regen_some(next_state, done)
+                else:
+                    new_state = self._regen_all(next_state, done)
+                return self._finish(next_state, new_state, new_state, reward,
+                                    terminated, truncated)
+            obs, state, reward, terminated, truncated, info = self.step_nofill(
                 state, action)
-            return (self._obs(next_state), next_state, reward, terminated,
-                    truncated, {})
-        if not self._pooled:
-            next_state, reward, terminated, truncated = self._step_envs(
-                state, action)
-            done = terminated | truncated
-            # each env's own stream: regenerate from split(rng)[0]
-            if self.reset_strategy == "conditional":
-                new_state = self._regen_some(next_state, done)
-            else:
-                new_state = self._regen_all(next_state, done)
-            return self._finish(next_state, new_state, new_state, reward,
-                                terminated, truncated)
-        obs, state, reward, terminated, truncated, info = self.step_nofill(
-            state, action)
-        return obs, self.refill(state, 1), reward, terminated, truncated, info
+            return obs, self.refill(state, 1), reward, terminated, truncated, info
 
     def step_nofill(self, state: PooledState, action: torch.Tensor):
         """Pooled step WITHOUT the refill: consume only.  Pair with
         :meth:`refill` every K steps."""
-        next_state, reward, terminated, truncated = self._step_envs(
-            state.envs, action)
-        done = terminated | truncated
-        new_envs, flags, d_fresh, d_stale = self._consume(
-            state.pool, state.fresh, next_state, done)
-        new_state = state.replace(envs=new_envs, fresh=flags,
-                                  n_fresh=state.n_fresh + d_fresh,
-                                  n_stale=state.n_stale + d_stale)
-        return self._finish(next_state, new_envs, new_state, reward, terminated,
-                            truncated)
+        with trace.span("vector.step_nofill"):
+            next_state, reward, terminated, truncated = self._step_envs(
+                state.envs, action)
+            done = terminated | truncated
+            new_envs, flags, d_fresh, d_stale = self._consume(
+                state.pool, state.fresh, next_state, done)
+            new_state = state.replace(envs=new_envs, fresh=flags,
+                                      n_fresh=state.n_fresh + d_fresh,
+                                      n_stale=state.n_stale + d_stale)
+            return self._finish(next_state, new_envs, new_state, reward, terminated,
+                                truncated)
 
     def refill(self, state: PooledState, windows: int = 1) -> PooledState:
         """Write ``windows`` refill windows (``windows * pool_refill`` fresh
         levels) to the pool ring in one contiguous block."""
-        pool, fresh, tick, key = self._refill_windows(
-            state.pool, state.fresh, state.tick, state.key, windows)
-        return state.replace(pool=pool, fresh=fresh, tick=tick, key=key)
+        with trace.span("vector.refill"):
+            pool, fresh, tick, key = self._refill_windows(
+                state.pool, state.fresh, state.tick, state.key, windows)
+            return state.replace(pool=pool, fresh=fresh, tick=tick, key=key)
 
     # -- pooled internals --------------------------------------------------
     def _consume(self, pool: EnvState, flags: torch.Tensor,
@@ -281,27 +297,28 @@ class VectorEnv:
         (strict) a level regenerated from the env's own stream.  Returns
         (new envs, updated freshness flags, fresh consumes, stale
         consumes)."""
-        b = self.local_envs
-        lo = map_fields(lambda p: p[:b], pool)
-        hi = map_fields(lambda p: p[b:], pool)
-        f_lo, f_hi = flags[:b], flags[b:]
-        use_lo = done & f_lo
-        use_hi = done & ~f_lo & f_hi
-        flags_next = torch.cat([f_lo & ~use_lo, f_hi & ~use_hi])
-        served = use_lo | use_hi
-        d_fresh = served.sum(dtype=torch.int32)
-        fresh_states = tree_select(use_hi, hi, lo)
-        if self.best_effort:
-            d_stale = (done & ~served).sum(dtype=torch.int32)
-            return (tree_select(done, fresh_states, next_state), flags_next,
-                    d_fresh, d_stale)
-        # strict: an env that missed both slots regenerates, without a host
-        # round trip, so every served level is fresh
-        uncovered = done & ~served
-        new_envs = self._regen_all(tree_select(served, fresh_states, next_state),
-                                   uncovered)
-        return (new_envs, flags_next, d_fresh + uncovered.sum(dtype=torch.int32),
-                torch.zeros((), dtype=torch.int32, device=done.device))
+        with trace.span("vector.consume"):
+            b = self.local_envs
+            lo = map_fields(lambda p: p[:b], pool)
+            hi = map_fields(lambda p: p[b:], pool)
+            f_lo, f_hi = flags[:b], flags[b:]
+            use_lo = done & f_lo
+            use_hi = done & ~f_lo & f_hi
+            flags_next = torch.cat([f_lo & ~use_lo, f_hi & ~use_hi])
+            served = use_lo | use_hi
+            d_fresh = served.sum(dtype=torch.int32)
+            fresh_states = tree_select(use_hi, hi, lo)
+            if self.best_effort:
+                d_stale = (done & ~served).sum(dtype=torch.int32)
+                return (tree_select(done, fresh_states, next_state), flags_next,
+                        d_fresh, d_stale)
+            # strict: an env that missed both slots regenerates, without a host
+            # round trip, so every served level is fresh
+            uncovered = done & ~served
+            new_envs = self._regen_all(tree_select(served, fresh_states, next_state),
+                                       uncovered)
+            return (new_envs, flags_next, d_fresh + uncovered.sum(dtype=torch.int32),
+                    torch.zeros((), dtype=torch.int32, device=done.device))
 
     def _refill_windows(self, pool: EnvState, flags: torch.Tensor,
                         tick: torch.Tensor, key: torch.Tensor, windows: int):
@@ -327,8 +344,11 @@ class VectorEnv:
             return pool, flags, tick, key
         keys = torch.cat([rng.split(k, n, (p, p + m)) for p, m, _ in parts])
         idx = torch.cat([torch.arange(s, s + m, device=self.device) for _, m, s in parts])
+        trace.count("refill.draws", keys.shape[0])
         if self.best_effort_refill:
-            cand, ok = self.env.generate_attempt(keys, self.params, self.device)
+            with trace.span("vector.generate"):
+                cand, ok = self.env.generate_attempt(keys, self.params, self.device)
+            trace.count("refill.accepted", ok)
             if type(cand) is not type(pool):
                 # as in the JAX package, whose refill fails to trace here
                 raise ValueError(
@@ -342,6 +362,7 @@ class VectorEnv:
                                                     pool))
         else:
             cand = self._gen_many(keys)
+            trace.count("refill.accepted", keys.shape[0])
         pool = map_fields(lambda p, x: p.index_copy(0, idx, x), pool, cand)
         flags = flags.index_fill(0, idx, True)
         return pool, flags, tick, key

@@ -57,6 +57,7 @@ from minigrid_tpu_torch.rl.mesh import (
     tp_param_sharding,
 )
 from minigrid_tpu_torch.rl.networks import ActorCritic
+from minigrid_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -547,9 +548,12 @@ class PPO:
         return local.gather(1, order), owned.sum(1).tolist()
 
     def update(self, runner: PPORunner) -> tuple[PPORunner, dict]:
-        """One PPO update: rollout, advantages, optimize."""
-        runner, traj = self.rollout(runner)
-        return self.optimize(runner, self.advantages(runner, traj))
+        """One PPO update: rollout, advantages, optimize (the spans
+        ``ppo.rollout`` and ``ppo.optimize``, the advantages in the second)."""
+        with trace.span("ppo.rollout"):
+            runner, traj = self.rollout(runner)
+        with trace.span("ppo.optimize"):
+            return self.optimize(runner, self.advantages(runner, traj))
 
     def train(self, runner: PPORunner, num_updates: int | None = None):
         """Run ``num_updates`` updates; returns (runner, stacked metrics)."""

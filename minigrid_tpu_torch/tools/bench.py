@@ -39,10 +39,10 @@ Prints one JSON line.  Run on the card:
 ``--profile N`` traces N steady-state steps with ``torch.profiler`` instead
 and prints where the time goes: kernel launches and top-level torch ops per
 step (with ``--env ID --device cpu`` the ops count on the CPU), device busy
-time
-against wall time, the kernels that take the most device time, and (pooled
-engine) each layer of the step run on its own (host-synced µs and launches
-per step).
+time against wall time, the kernels that take the most device time, and the
+program's own spans (``utils/trace.py``, on while the profiler records) as
+``layers``: each span's host µs a step, inclusive and self, its calls a step
+and the spans it ran in, with the trace counters beside them.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.ops.fused_step import FusedVectorEnv
 from minigrid_tpu_torch.parallel.vector import PooledState, VectorEnv
+from minigrid_tpu_torch.utils import trace
 
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
 NUM_ENVS = 4096
@@ -281,46 +282,6 @@ def _launches(prof, averages=None) -> int:
     return sum(e.count for e in averages if e.key in LAUNCH_CALLS)
 
 
-def _layers(venv: VectorEnv, state: PooledState, key: torch.Tensor,
-            reps: int = 20) -> dict:
-    """Each layer of one steady-state step, run on its own: host-synced µs
-    and kernel launches per env-step (the refill divided by the period it
-    serves)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    b, n_act = venv.num_envs, venv.env.num_actions
-    action = rng.randint(key, (b,), 0, n_act)
-    nxt, _, term, trunc = venv._step_envs(state.envs, action)
-    done = term | trunc
-    envs = venv._consume(state.pool, state.fresh, nxt, done)[0]
-    obs = venv._obs(envs)
-    parts = {
-        "actions": (lambda: rng.randint(key, (b,), 0, n_act), 1),
-        "step_state": (lambda: venv._step_envs(state.envs, action), 1),
-        "consume": (lambda: venv._consume(state.pool, state.fresh, nxt, done), 1),
-        "observation": (lambda: venv._obs(envs), 1),
-        "checksum": (lambda: sum(x.to(torch.float32).sum() for x in obs.values()), 1),
-        "refill": (lambda: venv.refill(state, REFILL_PERIOD), REFILL_PERIOD),
-    }
-    out = {}
-    for name, (fn, per_steps) in parts.items():
-        fn()
-        _sync(venv.device)
-        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            _sync(venv.device)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        _sync(venv.device)
-        out[name] = {
-            "us_per_step": (time.perf_counter() - t0) / reps / per_steps * 1e6,
-            "launches_per_step": _launches(prof) / per_steps,
-        }
-    return out
-
-
 def record(body):
     """Run ``body()`` (work ending in a host fetch) under ``torch.profiler``
     with CPU and CUDA activity: (the profile, the wall seconds of ``body``)."""
@@ -336,8 +297,11 @@ def record(body):
 
 def _trace(body, num_steps: int, top: int) -> dict:
     """Run ``body()`` (``num_steps`` steps ending in a host fetch) under
-    :func:`record` and summarise the device's side of it."""
+    :func:`record` and summarise the device's side of it, and the program's
+    spans and counters over the same steps."""
+    trace.reset()
     prof, wall = record(body)
+    spans = trace.report()
     averages = prof.key_averages()
     kernels, launches = [], _launches(prof, averages)
     for e in averages:
@@ -348,10 +312,11 @@ def _trace(body, num_steps: int, top: int) -> dict:
             kernels.append((us, e.count, e.key))
     kernels.sort(reverse=True)
     busy_us = sum(us for us, _, _ in kernels)
-    # the torch ops the host issued (top-level ATen calls): launches on a
-    # card, and the stand-in for them on the CPU
+    # the torch ops the host issued (ATen calls inside no other ATen call,
+    # the program's spans aside): launches on a card, and the stand-in for
+    # them on the CPU
     torch_ops = sum(1 for e in prof.events()
-                    if e.cpu_parent is None and e.name.startswith("aten::"))
+                    if e.name.startswith("aten::") and not _inside_aten(e))
     return {
         "num_steps": num_steps,
         "wall_us_per_step": wall / num_steps * 1e6,
@@ -363,7 +328,22 @@ def _trace(body, num_steps: int, top: int) -> dict:
         "top_kernels": [{"name": name[:120], "us_per_step": us / num_steps,
                          "calls_per_step": n / num_steps}
                         for us, n, name in kernels[:top]],
+        "layers": {name: {"us_per_step": s["seconds"] / num_steps * 1e6,
+                          "self_us_per_step": s["self_seconds"] / num_steps * 1e6,
+                          "calls_per_step": s["calls"] / num_steps,
+                          "parents": s["parents"]}
+                   for name, s in spans["spans"].items()},
+        "counters": spans["counters"],
     }
+
+
+def _inside_aten(event) -> bool:
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name.startswith("aten::"):
+            return True
+        parent = parent.cpu_parent
+    return False
 
 
 def profile(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
@@ -380,9 +360,7 @@ def profile(venv: VectorEnv, num_steps: int, top: int = 15) -> dict:
         acc, state = loop(venv, state, k_run, num_steps)
         float(acc)
 
-    out = _trace(body, num_steps, top)
-    return {"num_envs": venv.num_envs, **out,
-            "layers": _layers(venv, state, k_run)}
+    return {"num_envs": venv.num_envs, **_trace(body, num_steps, top)}
 
 
 def profile_fused(fvenv: FusedVectorEnv, num_steps: int, top: int = 15) -> dict:

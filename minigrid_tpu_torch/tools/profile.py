@@ -9,6 +9,10 @@ times the program shape the battery times (a random-action rollout through
 there and prints a per-kernel cost table: the device kernels of a run on the
 card, or on a CPU run the top-level ``aten::`` ops (the stand-in for
 launches that ``tools/bench.py --profile --device cpu`` uses).
+:func:`span_table` reads the same trace per program span (the
+``utils/trace.py`` spans, which the profiler turns on): each launch, each
+span's self host time and each device idle gap go to the innermost span
+around the host call that issued them.
 
 Usage:
     python -m minigrid_tpu_torch.tools.profile --env MiniGrid-DoorKey-8x8-v0 \
@@ -70,6 +74,7 @@ def profile_rollout(env_id: str, num_envs: int, num_steps: int,
         prof.export_chrome_trace(path)
         events = _events(path)
         result["kernels"] = _table(events, 15)
+        result["spans"] = span_table(events)
         on_card = venv.device.type == "cuda"
         launches = sum(1 for e in events if e.get("name") in bench.LAUNCH_CALLS)
         busy_us = sum(e.get("dur", 0) for e in events
@@ -115,6 +120,48 @@ def _table(events: list[dict], k: int | None) -> list[tuple[str, float, int]]:
     return [(n, d / 1e3, cnt[n]) for n, d in dur.most_common(k)]
 
 
+def span_table(events: list[dict]) -> list[dict]:
+    """One row per program span of a chrome trace (its ``user_annotation``
+    events), the most self time first: ``calls``, ``launches`` (the kernel
+    launches whose runtime call the span is the innermost around),
+    ``self_ms`` (its host time less its child spans'), ``idle_ms`` (the
+    device's idle gaps that end on a kernel it launched).  Launches and gaps
+    outside every span go to the row ``-``."""
+    from minigrid_tpu_torch.tools.bench import LAUNCH_CALLS
+
+    rows: dict = collections.defaultdict(
+        lambda: {"calls": 0, "launches": 0, "self_ms": 0.0, "idle_ms": 0.0})
+    host = sorted((e for e in events if e.get("cat") in ("user_annotation", "cuda_runtime")),
+                  key=lambda e: (e["tid"], e["ts"], -e.get("dur", 0)))
+    issuer, stack, tid = {}, [], None  # correlation id -> innermost span
+    for e in host:
+        if e["tid"] != tid:
+            tid, stack = e["tid"], []
+        while stack and stack[-1]["ts"] + stack[-1].get("dur", 0) <= e["ts"]:
+            stack.pop()
+        inner = stack[-1]["name"] if stack else "-"
+        if e["cat"] == "user_annotation":
+            ms = e.get("dur", 0) / 1e3
+            rows[e["name"]]["calls"] += 1
+            rows[e["name"]]["self_ms"] += ms
+            if stack:
+                rows[inner]["self_ms"] -= ms
+            stack.append(e)
+            continue
+        issuer[(e.get("args") or {}).get("correlation")] = inner
+        if e["name"] in LAUNCH_CALLS:
+            rows[inner]["launches"] += 1
+    device = sorted((e for e in events if e.get("cat") in DEVICE_CATEGORIES),
+                    key=lambda e: e["ts"])
+    for prev, nxt in zip(device, device[1:]):
+        gap = nxt["ts"] - (prev["ts"] + prev.get("dur", 0))
+        if gap > 0:
+            corr = (nxt.get("args") or {}).get("correlation")
+            rows[issuer.get(corr, "-")]["idle_ms"] += gap / 1e3
+    return sorted(({"span": name, **row} for name, row in rows.items()),
+                  key=lambda r: -r["self_ms"])
+
+
 def top_kernels(trace_dir: str, k: int | None = 15) -> list[tuple[str, float, int]]:
     """Parse the newest chrome trace under trace_dir: (name, total_ms, calls);
     ``k=None`` gives every row."""
@@ -147,6 +194,11 @@ def main(argv=None) -> None:
               f"share {res['device_idle_share']:.3f}")
     for name, ms, calls in res.get("kernels", []):
         print(f"  {ms:8.2f} ms  x{calls:5d}  {name[:70]}")
+    if res.get("spans"):
+        print("  span: self host ms, launches, device idle ms ending in it")
+    for r in res.get("spans", []):
+        print(f"  {r['self_ms']:8.2f} ms  {r['launches']:7d}  {r['idle_ms']:8.2f} ms  "
+              f"x{r['calls']:5d}  {r['span']}")
 
 
 if __name__ == "__main__":

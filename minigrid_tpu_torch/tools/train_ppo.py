@@ -14,6 +14,10 @@ tallies) after training and ``--resume`` restores one before it
 ``--total-updates`` (default ``--num-updates``): give both legs of a broken
 run the whole run's count, and 2 updates saved, then resumed for 1, equal 3
 updates straight.
+
+Tracing (``utils/trace.py``) is on while the tool trains: each update's line
+ends with its host seconds and those of its two halves, the spans
+``ppo.rollout`` and ``ppo.optimize`` (the advantages included).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ def main(argv=None):
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
     from minigrid_tpu_torch.rl import PPO, PPOConfig
+    from minigrid_tpu_torch.utils import trace
 
     env = minigrid_tpu_torch.make(args.env)
     cfg = PPOConfig(num_envs=args.num_envs, num_steps=args.num_steps,
@@ -60,14 +65,24 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     history = []
-    for u in range(args.num_updates):
-        runner, m = trainer.update(runner)
-        history.append(m)
-        print(f"update {u + 1:4d}  return={float(m['mean_return']):7.3f}  "
-              f"success={float(m['success_rate']):5.2f}  "
-              f"len={float(m['mean_length']):6.1f}  "
-              f"episodes={int(m['episodes']):6d}  "
-              f"loss={float(m['loss']):8.4f}", flush=True)
+    trace.enable()
+    try:
+        for u in range(args.num_updates):
+            trace.reset()
+            t_update = time.perf_counter()
+            runner, m = trainer.update(runner)
+            history.append(m)
+            spans = trace.report()["spans"]
+            print(f"update {u + 1:4d}  return={float(m['mean_return']):7.3f}  "
+                  f"success={float(m['success_rate']):5.2f}  "
+                  f"len={float(m['mean_length']):6.1f}  "
+                  f"episodes={int(m['episodes']):6d}  "
+                  f"loss={float(m['loss']):8.4f}  "
+                  f"time={time.perf_counter() - t_update:6.2f}s "
+                  f"(rollout {spans['ppo.rollout']['seconds']:6.2f}s, "
+                  f"optimize {spans['ppo.optimize']['seconds']:6.2f}s)", flush=True)
+    finally:
+        trace.disable()
     dt = time.perf_counter() - t0
     steps = args.num_updates * args.num_envs * args.num_steps
     print(f"\n{steps:,} env-steps in {dt:.0f}s "

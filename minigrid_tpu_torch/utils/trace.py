@@ -1,0 +1,167 @@
+"""Spans and counters inside the port: where the host's time goes, layer by
+layer, and how much of a layer's work was useful.
+
+    from minigrid_tpu_torch.utils import trace
+
+    with trace.span("vector.observe"):
+        obs = ...
+    trace.count("refill.draws", n)        # a host int
+    trace.count("refill.accepted", ok)    # a device tensor, summed when read
+
+Tracing is on while :func:`enable` is in force, or while a torch profiler
+records (``torch.profiler.profile``, ``torch.autograd.profiler.profile`` or
+``emit_nvtx``: each sets ``torch.autograd.profiler._is_profiler_enabled``).
+Otherwise it is off, which is the default: :func:`span` then returns one
+shared no-op context after a single flag test and :func:`count` returns at
+once, so nothing is allocated, no clock is read and no device work is issued.
+
+While tracing is on, a span records per name the number of calls, the total
+host seconds (``time.perf_counter``), the self seconds (the total less the
+time its child spans cover) and the names of the spans it ran inside.  While
+a profiler records, the span also opens ``torch.profiler.record_function``
+of its name, so it sits in the exported chrome trace (as a
+``user_annotation`` event) on the same clock as the kernels it launched, and
+in Nsight Systems under ``emit_nvtx``.  A span issues no host sync, no CUDA
+event and no launch: its seconds are the host's, the time to issue the
+layer's work, which equals the device's time only where the layer waits for
+the device.
+
+A counter adds a host int at once, or keeps a device tensor by reference and
+sums it only when :func:`report` reads it, so counting launches nothing; a
+counted tensor must not be written in place afterwards.  When more than
+``FOLD_AT`` tensors wait under one name they are folded into one (a
+concatenation and a sum, two launches), which bounds what the counter holds.
+
+:func:`report` returns ``{"spans": {name: {"calls", "seconds",
+"self_seconds", "parents"}}, "counters": {name: int}}``; the counters include
+the kernel wrappers' own running launch counts, ``obs_gather.LAUNCHES`` and
+``fused_step.LAUNCHES``, as ``obs_gather.launches`` and
+``fused_step.launches`` (:func:`reset` leaves those two alone).  The record
+is one per process, and spans nest as one thread opens them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+from torch.autograd import profiler as _profiler
+
+FOLD_AT = 1024
+
+_OFF = contextlib.nullcontext()
+_enabled = False
+_spans: dict[str, "_Stat"] = {}
+_counts: dict[str, int] = {}
+_pending: dict[str, list[torch.Tensor]] = {}
+_stack: list["_Span"] = []  # the spans open now, innermost last
+
+
+class _Stat:
+    __slots__ = ("calls", "seconds", "self_seconds", "parents")
+
+    def __init__(self):
+        self.calls = 0
+        self.seconds = 0.0
+        self.self_seconds = 0.0
+        self.parents: set[str] = set()
+
+
+class _Span:
+    __slots__ = ("name", "record", "start", "children")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.record = None
+        self.children = 0.0
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self.record = _profiler.record_function(self.name)
+            self.record.__enter__()
+        _stack.append(self)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.start
+        _stack.pop()
+        stat = _spans.get(self.name)
+        if stat is None:
+            stat = _spans[self.name] = _Stat()
+        stat.calls += 1
+        stat.seconds += seconds
+        stat.self_seconds += seconds - self.children
+        if _stack:
+            parent = _stack[-1]
+            parent.children += seconds
+            stat.parents.add(parent.name)
+        if self.record is not None:
+            self.record.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context that records ``name``'s host seconds while tracing is on,
+    and the shared no-op context while it is off."""
+    if not _enabled and not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a host int, or a device tensor summed when the report
+    reads it) to the counter ``name`` while tracing is on."""
+    if not _enabled and not _profiler._is_profiler_enabled:
+        return
+    if isinstance(value, torch.Tensor):
+        pending = _pending.setdefault(name, [])
+        pending.append(value)
+        if len(pending) > FOLD_AT:
+            _pending[name] = [_fold(pending)]
+    else:
+        _counts[name] = _counts.get(name, 0) + int(value)
+
+
+def _fold(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The tensors (of one device) summed into one, on their device."""
+    return torch.cat([t.reshape(-1) for t in tensors]).sum()
+
+
+def enable() -> None:
+    """Turn tracing on until :func:`disable`."""
+    global _enabled
+    _enabled = True
+
+
+def disable() -> None:
+    """Turn tracing off again (a recording profiler still turns it on)."""
+    global _enabled
+    _enabled = False
+
+
+def reset() -> None:
+    """Forget every span and counter recorded so far."""
+    _spans.clear()
+    _counts.clear()
+    _pending.clear()
+
+
+def report() -> dict:
+    """What was recorded since the last :func:`reset`: ``spans`` (per name
+    ``calls``, ``seconds``, ``self_seconds``, ``parents``) and ``counters``
+    (the device tensors summed now, one host read per counter)."""
+    from minigrid_tpu_torch.ops import fused_step, obs_gather
+
+    counters = dict(_counts)
+    for name, pending in _pending.items():
+        total = _fold(pending)
+        _pending[name] = [total]
+        counters[name] = counters.get(name, 0) + int(total)
+    counters["obs_gather.launches"] = obs_gather.LAUNCHES
+    counters["fused_step.launches"] = fused_step.LAUNCHES
+    spans = {name: {"calls": s.calls, "seconds": s.seconds,
+                    "self_seconds": s.self_seconds, "parents": sorted(s.parents)}
+             for name, s in _spans.items()}
+    return {"spans": spans, "counters": counters}

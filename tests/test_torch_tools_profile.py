@@ -33,7 +33,8 @@ def test_profile_rollout_on_the_cpu(tmp_path, strategy, period):
     assert set(plain) == set(want)
     assert plain["steps_per_sec"] > 0 and plain["wall_s"] > 0
     traced = profile.profile_rollout(EMPTY, 4, 8, trace_dir=str(tmp_path), device="cpu", **kw)
-    assert set(traced) == set(want) | {"kernels", "launches_per_step", "device_idle_share"}
+    assert set(traced) == set(want) | {"kernels", "spans", "launches_per_step",
+                                       "device_idle_share"}
     # off the card there are no launches and no device: no device metric
     assert traced["launches_per_step"] is None and traced["device_idle_share"] is None
     kernels = traced["kernels"]
@@ -42,6 +43,10 @@ def test_profile_rollout_on_the_cpu(tmp_path, strategy, period):
                for name, ms, calls in kernels)
     assert [ms for _, ms, _ in kernels] == sorted((ms for _, ms, _ in kernels), reverse=True)
     assert profile.top_kernels(str(tmp_path)) == kernels
+    # the program's spans, read from the same trace; no launch on the CPU
+    rows = {r["span"]: r for r in traced["spans"]}
+    assert {"vector.transition", "vector.observe"} <= set(rows)
+    assert all(r["launches"] == 0 and r["idle_ms"] == 0 for r in rows.values())
 
 
 def _write_trace(path, events):
