@@ -20,13 +20,21 @@ printing a result:
    agents face the goal), Empty-Random-6x6 and Empty-16x16, every output
    compared (grid, agent plane, image, reward bits, flags, next key, step
    index), plus the flipped-bit self-check on the image and on the grid of
-   the first and the ragged batch;
+   the first and the ragged batch; the threefry kernel against the plain
+   ``core/rng.py`` formula on the CPU: ``split`` into 2, 3, 5 and 37 keys at
+   B in {1, 16, 4096}, of contiguous keys, of keys cut from a wider split
+   and of keys whose two words lie apart, ``bits`` of shapes (), (30,),
+   (484,) and (4096, 7) with and without ``rows``, ``fold_in`` by an int and
+   by broadcast lanes, keys of all-zero and all-one words, empty batches,
+   each with the launches it must make, and the flipped-bit self-check;
 4. drive each main path with every kernel's launch count zeroed just before
    and read just after: ``make_vec("MiniGrid-DoorKey-8x8-v0", 4096,
    reset_strategy="pooled", pool_refill=64)`` through the bench loop of
    ``minigrid_tpu_torch.tools.bench`` (bulk refill every 8 steps) past the
    first truncation wave, then the same program at B=16 on the card and on
    the CPU, which must agree bitwise step by step and in the final state;
+   then ``make_vec("BabyAI-GoTo-v0", 4096)``, each of three steps exactly
+   200 threefry launches (its 16-level refill's draws);
    then ``FusedVectorEnv(make("MiniGrid-DoorKey-8x8-v0"), 4096)`` for 648
    steps (one ``fused_step`` launch a step, one ``obs_gather`` launch at
    reset, every env regenerated at least once), and the same fused program
@@ -171,7 +179,10 @@ printing a result:
    16x16, 19x19, 22x22, 4x4 and 9x5 states of phase 4, OneRoomS20's 20x20
    and Directions' 3x3 at V=3), time the fused step
    at B=32768
-   beside B=4096 with its bound, and time both engines end to end with the
+   beside B=4096 with its bound, the threefry kernel and its plain formula
+   at the GoTo generator's shapes (a 16 x 5 split, 16 x 30 and 4096 x 484
+   uniform bits) with the bound and the host time a call takes to issue,
+   and time both engines end to end with the
    actions of each run drawn before its timer starts.
 
 It prints one JSON line of kernel records, then the card line as
@@ -414,6 +425,17 @@ MANUAL_KEYS = ("up", "up", "right", "up", "left", " ", "backspace")
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 
+# the threefry kernel: a hash is 20 rounds of add, rotate and xor plus 5 key
+# injections, about 80 integer operations (as fused_bound_ms counts it)
+HASH_OPS = 80
+GOTO = "BabyAI-GoTo-v0"
+GOTO_HASHES_PER_STEP = 200  # one VectorEnv.step: the 16-level refill's draws
+# (name, keys, counters a key, the call) timed in phase 5: the GoTo
+# generator's 5-way split of 16 keys and uniform draws of 16 x 30 and 4096 x 484
+THREEFRY_TIMED = (("split 16x5", 16, 5, "split"), ("bits of uniform 16x30", 16, 30, "bits"),
+                  ("bits of uniform 4096x484", 4096, 484, "bits"))
+HOST_CALLS = 2000  # calls a host-time reading averages over
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -518,6 +540,115 @@ def check_flipped_bit(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         flipped.view(-1)[index] ^= 1
         if mismatches(flipped, want) != 1:
             raise AssertionError(f"the compare missed a flipped bit in {what}")
+
+
+def _key_words(gen: torch.Generator, *lead: int) -> torch.Tensor:
+    return torch.randint(0, 2**32, lead + (2,), generator=gen, dtype=torch.int64)
+
+
+def threefry_cases() -> list:
+    """(what, keys on the CPU, the draw, the kernel launches it makes): the
+    generators' split widths and non-contiguous keys, bit draws with and
+    without ``rows``, ``fold_in`` by an int and by broadcast lanes, keys of
+    all-zero and all-one words, an empty batch."""
+    from minigrid_tpu_torch.core import rng
+
+    gen = torch.Generator().manual_seed(20260820)
+    cases = []
+    for b in (1, 16, NUM_ENVS):
+        keys = _key_words(gen, b)
+        for num in (2, 3, 5, 37):
+            cases.append((f"split(keys, {num}) B={b}", keys,
+                          lambda k, num=num: rng.split(k, num), 1))
+        cases.append((f"split of split(keys, 5).unbind(1)[3] B={b}", keys,
+                      lambda k: rng.split(rng.split(k, 5).unbind(1)[3], 3), 2))
+    one, few = _key_words(gen), _key_words(gen, 16)
+    for shape in ((), (30,), (484,)):
+        cases.append((f"bits(keys, {shape}) B=16", few, lambda k, s=shape: rng.bits(k, s), 1))
+    cases.append(("bits(key, (4096, 7))", one, lambda k: rng.bits(k, (4096, 7)), 1))
+    for rows in ((0, 1000), (1000, 2024), (4095, 4096)):
+        cases.append((f"bits(key, (4096, 7), rows={rows})", one,
+                      lambda k, r=rows: rng.bits(k, (4096, 7), r), 1))
+    cases.append((f"bits of split(keys).unbind(-2)[1], (484,) B={NUM_ENVS}",
+                  _key_words(gen, NUM_ENVS),
+                  lambda k: rng.bits(rng.split(k).unbind(-2)[1], (484,)), 2))
+    for data in (0, 1, 2**31, 2**32 - 1):
+        cases.append((f"fold_in(keys, {data}) B=16", few, lambda k, d=data: rng.fold_in(k, d), 1))
+    cases.append(("fold_in(keys[:, None], lanes[8]) B=16", few,
+                  lambda k: rng.fold_in(k[:, None], torch.arange(8, device=k.device)), 1))
+    cases.append(("fold_in(split(keys, 5)[:, 2][:, None], lanes[8]) B=16", few,
+                  lambda k: rng.fold_in(rng.split(k, 5)[:, 2][:, None],
+                                        torch.arange(8, device=k.device)), 2))
+    extreme = torch.tensor([[0, 0], [2**32 - 1, 2**32 - 1], [0, 2**32 - 1], [2**32 - 1, 0]])
+    cases.append(("split(keys whose two words lie 16 apart, 5) B=16", few,
+                  lambda k: rng.split(k.T.contiguous().T, 5), 1))
+    cases.append(("split(extreme words, 5)", extreme, lambda k: rng.split(k, 5), 1))
+    cases.append(("bits(extreme words, (30,))", extreme, lambda k: rng.bits(k, (30,)), 1))
+    cases.append(("fold_in(extreme words, lanes)", extreme,
+                  lambda k: rng.fold_in(k, torch.arange(4, device=k.device) * 2**30), 1))
+    cases.append(("split of an empty batch", _key_words(gen, 0), lambda k: rng.split(k, 3), 0))
+    cases.append(("randint of an empty batch", _key_words(gen, 0),
+                  lambda k: rng.randint(k, (), 0, 5), 0))
+    cases.append((f"randint(keys, (), 0, 9) B={NUM_ENVS}", _key_words(gen, NUM_ENVS),
+                  lambda k: rng.randint(k, (), 0, 9), 2))
+    cases.append((f"uniform(keys, (484,)) B={NUM_ENVS}", _key_words(gen, NUM_ENVS),
+                  lambda k: rng.uniform(k, (484,)), 1))
+    return cases
+
+
+def check_threefry_kernel(dev, threefry) -> int:
+    """Phase 3: every case of :func:`threefry_cases` on the card against the
+    plain formula on the CPU, bitwise, with the launches each should make;
+    the flipped-bit self-check on the widest word output.  Returns the largest
+    |kernel - plain| (0 when bitwise equal)."""
+    worst, widest = 0, None
+    for what, keys, draw, launches in threefry_cases():
+        before = threefry.LAUNCHES
+        got = draw(keys.to(dev))
+        torch.cuda.synchronize()
+        made = threefry.LAUNCHES - before
+        want = draw(keys)
+        got = got.cpu()
+        bad = mismatches(got, want)
+        if bad:
+            raise AssertionError(f"threefry kernel != plain for {what}: {bad} entries")
+        if made != launches:
+            raise AssertionError(f"{what}: {made} threefry launches, expected {launches}")
+        worst = max(worst, max_abs_err(got, want))
+        if got.dtype == torch.int64 and (widest is None or got.numel() > widest[0].numel()):
+            widest = (got, want, what)
+        log(f"  threefry {what}: {tuple(got.shape)} bitwise equal, {made} launch(es)")
+    check_flipped_bit(*widest)
+    return worst
+
+
+def check_goto_hashes(dev, threefry) -> dict:
+    """The main path's hashes: one ``VectorEnv.step`` of GoTo at B=4096
+    (pooled, its 16-level best-effort refill) adds exactly
+    GOTO_HASHES_PER_STEP threefry launches, on three steps."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+
+    venv = minigrid_tpu_torch.make_vec(GOTO, NUM_ENVS, device=dev)
+    if venv.pool_refill != 16:
+        raise AssertionError(f"{GOTO}: pool_refill {venv.pool_refill}, the count assumes 16")
+    before = threefry.LAUNCHES
+    _, state = venv.reset(rng.PRNGKey(4, dev))
+    torch.cuda.synchronize()
+    reset = threefry.LAUNCHES - before
+    per_step = []
+    for k in rng.split(rng.PRNGKey(5, dev), 3):
+        action = rng.randint(k, (NUM_ENVS,), 0, venv.env.num_actions)
+        torch.cuda.synchronize()
+        before = threefry.LAUNCHES
+        _, state, *_ = venv.step(state, action)
+        torch.cuda.synchronize()
+        per_step.append(threefry.LAUNCHES - before)
+    if per_step != [GOTO_HASHES_PER_STEP] * 3:
+        raise AssertionError(f"{GOTO} B={NUM_ENVS}: threefry launches a step {per_step}, "
+                             f"expected {GOTO_HASHES_PER_STEP}")
+    log(f"  {GOTO} B={NUM_ENVS}: {reset} threefry launches at reset, {per_step} a step")
+    return {"reset": reset, "per_step": per_step}
 
 
 def check_gather_doorkey(dev, obs_gather) -> tuple[int, dict]:
@@ -3283,6 +3414,69 @@ def time_fused(fused_step, args: tuple, spec) -> dict:
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None}
 
 
+def threefry_bound_ms(keys: int, hashes: int, words: int) -> tuple[float, str, dict]:
+    """Least time for ``hashes`` threefry hashes under ``keys`` keys: the
+    keys read once and ``words`` int64 words a hash written (2 for a split,
+    1 for bits) over HBM bandwidth, against HASH_OPS operations a hash over
+    the int32 rate."""
+    nbytes = keys * 16 + hashes * words * 8
+    ops = hashes * HASH_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), bound_by, {"bytes": nbytes, "int_ops": ops}
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn`` takes to issue, no sync inside:
+    the median of five runs of ``calls`` calls, each drained before the
+    next."""
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def time_threefry(threefry) -> list[dict]:
+    """Phase 5: per THREEFRY_TIMED shape the kernel's and the plain formula's
+    device time (CUDA graphs), the bound, and the host time to issue one
+    kernel call and one plain call."""
+    from minigrid_tpu_torch.core import rng
+
+    gen = torch.Generator().manual_seed(7)
+    out = []
+    for what, b, n, kind in THREEFRY_TIMED:
+        keys = _key_words(gen, b).cuda()
+        if kind == "split":
+            def kernel(k=keys, n=n):
+                return threefry.split(k, n)
+
+            def plain(k=keys, n=n):
+                return torch.stack(rng._hash_iota(k, (n,)), -1)
+        else:
+            def kernel(k=keys, n=n):
+                return threefry.bits(k, (n,))
+
+            def plain(k=keys, n=n):
+                w1, w2 = rng._hash_iota(k, (n,))
+                return w1 ^ w2
+        if mismatches(kernel(), plain()):
+            raise AssertionError(f"threefry {what}: kernel != plain on the card")
+        bound, bound_by, work = threefry_bound_ms(b, b * n, 2 if kind == "split" else 1)
+        rec = {"what": what, "ms": gpu_time_ms(kernel), "plain_ms": gpu_time_ms(plain),
+               "bound_ms": bound, "bound_by": bound_by, "work": work,
+               "host_us": host_us(kernel), "plain_host_us": host_us(plain, HOST_CALLS // 20),
+               "rng_host_us": host_us(lambda k=keys, n=n, kind=kind: getattr(rng, kind)(
+                   k, n if kind == "split" else (n,)))}
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a card",
@@ -3297,7 +3491,7 @@ def main() -> int:
     log(f"  {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
-    from minigrid_tpu_torch.ops import _build, fused_step, obs_gather
+    from minigrid_tpu_torch.ops import _build, fused_step, obs_gather, threefry
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -3316,9 +3510,11 @@ def main() -> int:
     err = max(err, err_dk)
     fused_err, fused_batches = check_fused_kernel(dev, fused_step)
     _, fused_args, fused_spec = fused_batches[0]
+    threefry_err = check_threefry_kernel(dev, threefry)
 
     log("phase 4: the main paths")
     main = drive_main_path(dev, counters)
+    goto_hashes = check_goto_hashes(dev, threefry)
     card_matches_cpu(dev)
     fused_main = drive_fused_path(dev, counters)
     fused_card_matches_cpu(dev)
@@ -3442,6 +3638,14 @@ def main() -> int:
         f"{wide_bound[0] * 1e3:.3f} us ({wide_bound[1]}; {wide_bound[2]}), "
         f"{wide_bound[0] / wide_ms:.3f} of the bound [{card}]")
 
+    threefry_times = time_threefry(threefry)
+    for r in threefry_times:
+        log(f"  threefry {r['what']}: kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} us "
+            f"({r['bound_by']}; {r['work']}), {r['bound_ms'] / r['ms']:.3f} of the bound; "
+            f"host {r['host_us']:.2f} us a wrapper call, {r['rng_host_us']:.2f} us a "
+            f"core/rng.py call, {r['plain_host_us']:.1f} us a plain call [{card}]")
+
     from minigrid_tpu_torch.tools import bench
 
     venv = bench.make_venv(dev)
@@ -3490,6 +3694,19 @@ def main() -> int:
         "bound_ms": fused_bound,
         "bound_by": fused_bound_by,
         "library_ms": fused_times["library_ms"],
+    }, {
+        "name": "threefry",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/threefry.cu",
+        "replaces": None,
+        "launches": goto_hashes["per_step"][0],
+        "max_abs_err": threefry_err,
+        "ms": threefry_times[-1]["ms"],
+        "plain_ms": threefry_times[-1]["plain_ms"],
+        "bound_ms": threefry_times[-1]["bound_ms"],
+        "bound_by": threefry_times[-1]["bound_by"],
+        "library_ms": None,
+        "shapes": threefry_times,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

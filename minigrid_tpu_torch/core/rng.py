@@ -31,6 +31,11 @@ A key is a pair of uint32 words.  torch has no full uint32 arithmetic, so keys
 and intermediate words are int64 holding values in [0, 2^32), masked after
 every add and rotate.  Every function is batched: a key tensor has shape
 ``[..., 2]`` and the leading dims broadcast through.
+
+``threefry2x32`` is the plain version of the hash, and a CPU tensor takes it.
+On a CUDA tensor ``split``, ``bits`` and ``fold_in``, and every draw built on
+them, hash in one launch of ``ops/threefry.py``'s kernel instead, bit for bit
+the same words; there is no fallback.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.core.state import resolve_device
+from minigrid_tpu_torch.ops import threefry
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,17 +85,8 @@ def _hash_iota(keys: torch.Tensor, shape: tuple,
     ``[..., 2]`` keys -> two ``[..., *shape]`` word tensors.  With ``rows =
     (lo, hi)`` only the rows ``[lo, hi)`` of the first dim of ``shape``
     are hashed: the same words as those rows of the whole draw."""
-    n = math.prod(shape)
-    if n >= 1 << 32:
-        raise ValueError("random draws above 2^32 values need the high counter")
-    if rows is None:
-        rows = (0, shape[0]) if shape else (0, 1)
-    lo_row, hi_row = rows
-    if not 0 <= lo_row <= hi_row <= (shape[0] if shape else 1):
-        raise ValueError(f"rows {rows} outside the draw's first dim of {shape}")
-    inner = math.prod(shape[1:])
-    shape = (hi_row - lo_row,) + tuple(shape[1:]) if shape else ()
-    lo = torch.arange(lo_row * inner, hi_row * inner, dtype=torch.int64,
+    base, shape = threefry.iota_rows(shape, rows)
+    lo = torch.arange(base, base + math.prod(shape), dtype=torch.int64,
                       device=keys.device).reshape(shape)
     expand = (...,) + (None,) * len(shape)
     return threefry2x32(keys[..., 0][expand], keys[..., 1][expand],
@@ -99,6 +96,8 @@ def _hash_iota(keys: torch.Tensor, shape: tuple,
 def split(keys: torch.Tensor, num: int = 2, rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``; with
     ``rows = (lo, hi)`` the keys ``[lo, hi)`` of the ``num`` alone."""
+    if keys.device.type != "cpu":
+        return threefry.split(keys, num, rows)
     b1, b2 = _hash_iota(keys, (num,), rows)
     return torch.stack([b1, b2], dim=-1)
 
@@ -108,6 +107,8 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     (0, data) under each key, ``[..., 2]`` -> ``[..., 2]``.  ``data`` is an
     int in [0, 2^32) or an int tensor of such values that broadcasts against
     the keys' leading dims.  ``fold_in(k, 1) == split(k)[1]``."""
+    if keys.device.type != "cpu":
+        return threefry.fold_in(keys, data)
     if isinstance(data, torch.Tensor):
         data = data.to(device=keys.device, dtype=torch.int64)
     elif not 0 <= int(data) <= _M32:
@@ -123,6 +124,8 @@ def bits(keys: torch.Tensor, shape: tuple = (),
     """``jax.random.bits`` (32-bit): ``[..., 2]`` keys -> int64
     ``[..., *shape]`` of uint32 values; with ``rows = (lo, hi)`` the rows
     ``[lo, hi)`` of the first dim of ``shape`` alone."""
+    if keys.device.type != "cpu":
+        return threefry.bits(keys, tuple(shape), rows)
     b1, b2 = _hash_iota(keys, tuple(shape), rows)
     return b1 ^ b2
 

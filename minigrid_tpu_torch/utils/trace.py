@@ -34,9 +34,10 @@ concatenation and a sum, two launches), which bounds what the counter holds.
 
 :func:`report` returns ``{"spans": {name: {"calls", "seconds",
 "self_seconds", "parents"}}, "counters": {name: int}}``; the counters include
-the kernel wrappers' own running launch counts, ``obs_gather.LAUNCHES`` and
-``fused_step.LAUNCHES``, as ``obs_gather.launches`` and
-``fused_step.launches`` (:func:`reset` leaves those two alone).  The record
+the kernel wrappers' own running launch counts, ``obs_gather.LAUNCHES``,
+``fused_step.LAUNCHES`` and ``threefry.LAUNCHES``, as ``obs_gather.launches``,
+``fused_step.launches`` and ``threefry.launches`` (:func:`reset` leaves those
+three alone).  The record
 is one per process, and spans nest as one thread opens them.
 """
 
@@ -152,7 +153,7 @@ def report() -> dict:
     """What was recorded since the last :func:`reset`: ``spans`` (per name
     ``calls``, ``seconds``, ``self_seconds``, ``parents``) and ``counters``
     (the device tensors summed now, one host read per counter)."""
-    from minigrid_tpu_torch.ops import fused_step, obs_gather
+    from minigrid_tpu_torch.ops import fused_step, obs_gather, threefry
 
     counters = dict(_counts)
     for name, pending in _pending.items():
@@ -161,6 +162,7 @@ def report() -> dict:
         counters[name] = counters.get(name, 0) + int(total)
     counters["obs_gather.launches"] = obs_gather.LAUNCHES
     counters["fused_step.launches"] = fused_step.LAUNCHES
+    counters["threefry.launches"] = threefry.LAUNCHES
     spans = {name: {"calls": s.calls, "seconds": s.seconds,
                     "self_seconds": s.self_seconds, "parents": sorted(s.parents)}
              for name, s in _spans.items()}

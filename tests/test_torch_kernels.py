@@ -22,7 +22,7 @@ import torch
 import minigrid_tpu_torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import rng
-from minigrid_tpu_torch.ops import _build, fused_step, obs_gather
+from minigrid_tpu_torch.ops import _build, fused_step, obs_gather, threefry
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "minigrid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -118,7 +118,7 @@ def test_library_path_follows_source_content(tmp_path, monkeypatch):
 def test_every_kernel_source_is_built():
     """Each csrc/*.cu has a wrapper module that loads it by name."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["fused_step", "obs_gather"]
+    assert sources == ["fused_step", "obs_gather", "threefry"]
 
 
 def _fused_inputs(env_id: str, n: int, device, seed: int = 0, walk: int = 12,
@@ -652,6 +652,45 @@ def test_pov_render_batch_on_the_card_matches_the_cpu(cuda, channels_first):
     want = render.pov_render_batch(cpu, p, render.get_atlas(8, "cpu"), channels_first)
     assert got.is_contiguous() and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
+
+
+# -- the threefry kernel on the card --------------------------------------------------
+
+@pytest.mark.gpu
+def test_threefry_kernel_matches_plain(cuda):
+    """``chip_smoke.py`` phase 3's threefry cases: split, bits and fold_in on
+    the card bitwise the plain formula on the CPU, each with the launches it
+    must make, and the flipped-bit self-check."""
+    import chip_smoke
+
+    assert chip_smoke.check_threefry_kernel(cuda, threefry) == 0
+
+
+@pytest.mark.gpu
+def test_draws_on_the_card_never_take_the_eager_hash(cuda, monkeypatch):
+    """Every draw of a CUDA tensor hashes in the kernel: the plain formula
+    is never called, and each call launches."""
+    def refuse(*args):
+        raise AssertionError("a CUDA draw took the eager hash")
+
+    monkeypatch.setattr(rng, "threefry2x32", refuse)
+    keys = rng.split(rng.PRNGKey(3, cuda), 6)
+    before = threefry.LAUNCHES
+    draws = [rng.bits(keys, (5,)), rng.fold_in(keys, 9),
+             rng.fold_in(keys[:, None], torch.arange(4, device=cuda)),
+             rng.randint(keys, (3,), 0, 7), rng.uniform(keys, (3,)),
+             rng.permutation(keys, 8), rng.categorical(keys, torch.zeros(6, 5, device=cuda)),
+             rng.categorical_one_key(keys[0], torch.zeros(6, 5, device=cuda))]
+    torch.cuda.synchronize()
+    assert all(d.device.type == "cuda" for d in draws)
+    assert threefry.LAUNCHES - before == 1 + 1 + 1 + 2 + 1 + 2 + 1 + 1
+
+
+@pytest.mark.gpu
+def test_threefry_wrapper_refuses_data_on_another_device(cuda):
+    keys = rng.split(rng.PRNGKey(0, cuda), 4)
+    with pytest.raises(ValueError, match="fold_in data"):
+        threefry.launch(threefry.fold_layout(keys, torch.arange(4)))
 
 
 # -- the learner on the card ----------------------------------------------------------

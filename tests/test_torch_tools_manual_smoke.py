@@ -71,12 +71,14 @@ def play(mc_cls, env, keys, capsys, **kwargs) -> tuple[FakeWindow, str]:
     return win, capsys.readouterr().out
 
 
-def jitted_frames(env):
+def jitted_frames(env, monkeypatch):
     """The JAX env with its ``get_frame`` jitted (the same values; eager it
-    takes seconds a frame)."""
+    takes seconds a frame).  ``make`` returns one cached instance per id, so
+    the patch is undone after the test: later tests of the worker get the
+    env's own ``get_frame``."""
     frame = jax.jit(env.get_frame, static_argnames=("tile_size",))
-    env.get_frame = lambda state, params, tile_size: frame(state, params,
-                                                          tile_size=tile_size)
+    monkeypatch.setattr(env, "get_frame", lambda state, params, tile_size: frame(
+        state, params, tile_size=tile_size))
     return env
 
 
@@ -86,11 +88,11 @@ def jitted_frames(env):
     # resets, then one more step
     ("MiniGrid-Empty-5x5-v0", ["up", "up", "right", "up", "up", "left"], True),
 ])
-def test_manual_control_matches_jax(env_id, keys, ends, capsys):
+def test_manual_control_matches_jax(env_id, keys, ends, capsys, monkeypatch):
     win, out = play(ManualControl, minigrid_tpu_torch.make(env_id), keys, capsys,
                     device="cpu")
-    jwin, jout = play(JaxManualControl, jitted_frames(minigrid_tpu.make(env_id)), keys,
-                      capsys)
+    jwin, jout = play(JaxManualControl, jitted_frames(minigrid_tpu.make(env_id), monkeypatch),
+                      keys, capsys)
     assert out == jout
     assert win.captions == jwin.captions and win.captions
     assert len(win.images) == len(jwin.images) > 3
