@@ -16,6 +16,13 @@ pass as :meth:`BabyAILevel.generate` compacts envs; each pass reads on the
 host whether a pair is left, and matches the new descriptors of those pairs
 only.  A lane still unmatched after 24 redraws keeps its 24th draw, as in
 the JAX package, which still calls the level valid.
+
+Tracing (``utils/trace.py``) sees the locked room and its key as the span
+``levelgen.layout``, :meth:`LevelGen._rand_objs` as ``levelgen.descs`` and
+the instruction's shape, clause kinds and validity checks as
+``levelgen.instr``; the host counters ``levelgen.desc_passes`` (the first
+draw and each redraw pass) and ``levelgen.desc_redraws`` (the (env, lane)
+pairs redrawn) count the descriptor loop's work.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid_ops as G
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.sampling import SORTED_COLOR_IDS
+from minigrid_tpu_torch.utils import trace
 
 _DOOR = C.OBJECT_TO_IDX["door"]
 _LOCKED = C.STATE_TO_IDX["locked"]
@@ -120,6 +128,7 @@ class LevelGen(BabyAILevel):
         room_mask = self.agent_room_mask(b, params)
 
         descs = self._sample_descs(first, kind8, fixed8)
+        trace.count("levelgen.desc_passes", 1)
         ok = self._descs_match(b, room_mask, locked_rect, has_locked, env8, descs)
         redraws = torch.zeros((n * 2 * k,), dtype=torch.int32, device=dev)
         idx = (~ok).nonzero()[:, 0]
@@ -127,6 +136,8 @@ class LevelGen(BabyAILevel):
         for _ in range(DESC_FUEL):
             if idx.numel() == 0:
                 break
+            trace.count("levelgen.desc_passes", 1)
+            trace.count("levelgen.desc_redraws", idx.numel())
             chain, sub = rng.split(chain).unbind(-2)
             cand = self._sample_descs(sub, kind8[idx], fixed8[idx])
             descs = descs.index_copy(0, idx, cand)
@@ -154,23 +165,24 @@ class LevelGen(BabyAILevel):
         # single room (no internal wall to put its door on)
         use_locked = self.locked_room_prob > 0 and n_rooms > 1
         if use_locked:
-            has_locked = rng.uniform(k[1]) < self.locked_room_prob
-            # (room, side) with a neighbor, uniform
-            sides = [self.wall_id_for(r % cols, r // cols, s)[1]
-                     for r in range(n_rooms) for s in range(4)]
-            logits = torch.where(G.const(sides, dev, torch.bool), 0.0, -torch.inf)
-            pick = rng.categorical(k[2], logits)
-            lr = pick // 4
-            li, lj = lr % cols, lr // cols
-            b, door, _ = self.add_door(b, k[3], li, lj, pick % 4, locked=True,
-                                       enabled=has_locked)
-            # its key in another room
-            logits_k = torch.where(rooms == lr[:, None], -torch.inf, 0.0)
-            kr = rng.categorical(k[4], logits_k)
-            b, _, _ = self.add_object(b, k[5], params, kr % cols, kr // cols, "key",
-                                      door[:, 1].to(torch.int32), enabled=has_locked)
-            locked_rect = (self.room_rect_mask(params, li, lj, dev)
-                           & has_locked[:, None, None])
+            with trace.span("levelgen.layout"):
+                has_locked = rng.uniform(k[1]) < self.locked_room_prob
+                # (room, side) with a neighbor, uniform
+                sides = [self.wall_id_for(r % cols, r // cols, s)[1]
+                         for r in range(n_rooms) for s in range(4)]
+                logits = torch.where(G.const(sides, dev, torch.bool), 0.0, -torch.inf)
+                pick = rng.categorical(k[2], logits)
+                lr = pick // 4
+                li, lj = lr % cols, lr // cols
+                b, door, _ = self.add_door(b, k[3], li, lj, pick % 4, locked=True,
+                                           enabled=has_locked)
+                # its key in another room
+                logits_k = torch.where(rooms == lr[:, None], -torch.inf, 0.0)
+                kr = rng.categorical(k[4], logits_k)
+                b, _, _ = self.add_object(b, k[5], params, kr % cols, kr // cols, "key",
+                                          door[:, 1].to(torch.int32), enabled=has_locked)
+                locked_rect = (self.room_rect_mask(params, li, lj, dev)
+                               & has_locked[:, None, None])
         else:
             has_locked = torch.zeros((n,), dtype=torch.bool, device=dev)
             locked_rect = torch.zeros((n, params.width, params.height),
@@ -200,13 +212,25 @@ class LevelGen(BabyAILevel):
         if not self.unblocking:
             valid = valid & self.objs_reachable(b, params)
 
-        # the instruction: its shape, then clause kinds and descriptors for
-        # the four slots
+        # the instruction: its clause kinds, descriptors for the four slots,
+        # then its shape
+        with trace.span("levelgen.instr"):
+            ck = self._rand_action_kind(rng.fold_in(k[10][:, None],
+                                                    torch.arange(4, device=dev)))
+        with trace.span("levelgen.descs"):
+            d1, d2, _ = self._rand_objs(k[11], k[12], b, params, locked_rect,
+                                        has_locked, ck)
+        with trace.span("levelgen.instr"):
+            instr, valid = self._instr(k, b, params, ck, d1, d2, valid)
+        return self.finish_level(b, instr, params, valid)
+
+    def _instr(self, k: tuple, b: dict, params, ck: torch.Tensor, d1: torch.Tensor,
+               d2: torch.Tensor, valid: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        """The instruction's shape over the drawn clauses, and the level's
+        validity after ``putnext_valid`` and the unblocking check."""
+        dev = ck.device
+        n = ck.shape[0]
         instr_kind = rng.randint(k[9], (), 0, len(self.instr_kinds))
-        ck = self._rand_action_kind(rng.fold_in(k[10][:, None],
-                                                torch.arange(4, device=dev)))
-        d1, d2, _ = self._rand_objs(k[11], k[12], b, params, locked_rect, has_locked,
-                                    ck)
 
         def kind_is(name):
             return instr_kind == (self.instr_kinds.index(name)
@@ -247,4 +271,4 @@ class LevelGen(BabyAILevel):
                 named = locked_colors.gather(1, d[..., 1].long())  # [B, 4]
                 valid = valid & ~(use & (d[..., 0] == _KEY_LOCAL) & (d[..., 1] > 0)
                                   & named).any(dim=1)
-        return self.finish_level(b, instr, params, valid)
+        return instr, valid

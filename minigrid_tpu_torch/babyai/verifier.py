@@ -29,9 +29,16 @@ agent's pickup and drop, so identity tracking is two one-cell updates a step;
 the verify-visible planes (``stale*``) refresh only on drop actions, as the
 reference's ``update_objs_poss`` does.  ``done_actions`` is the reference's
 BABYAI_DONE_ACTIONS mode.
+
+Tracing (``utils/trace.py``) sees the composite path's three stages as the
+spans ``babyai.track`` (:func:`_update_tracking`), ``babyai.clauses``
+(:func:`_eval_clauses`) and ``babyai.sequence`` (the operands' And and the
+Before/After/And state machines); the one-clause path records none of them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -39,6 +46,7 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.grid_ops import const, read_word
 from minigrid_tpu_torch.core.step import DONE, DROP, PICKUP, TOGGLE, StepOutcome, dir_to_vec
+from minigrid_tpu_torch.utils import trace
 
 # Instruction clause kinds
 K_NONE, K_GOTO, K_PICKUP, K_OPEN, K_PUTNEXT = range(5)
@@ -364,8 +372,13 @@ def verify_step(vs: dict, instr: dict, grid: torch.Tensor, agent_pos: torch.Tens
     taken while its condition matched on the previous step, a ``done``
     without a match fails, and no other action ends the episode."""
     action = action.to(torch.int32)
-    vs = _update_tracking(vs, outcome, action, grid.shape[2])
-    raw = _eval_clauses(vs, instr, grid, agent_pos, agent_dir, action, outcome)
+    composite = instr["kinds"].shape[1] > 1
+    # the one-clause path records no span: a no-op context that takes the name
+    stage = trace.span if composite else contextlib.nullcontext
+    with stage("babyai.track"):
+        vs = _update_tracking(vs, outcome, action, grid.shape[2])
+    with stage("babyai.clauses"):
+        raw = _eval_clauses(vs, instr, grid, agent_pos, agent_dir, action, outcome)
     is_done_act = action == DONE
     raw_match = raw == SUCCESS
     if done_actions:
@@ -375,14 +388,24 @@ def verify_step(vs: dict, instr: dict, grid: torch.Tensor, agent_pos: torch.Tens
     empty_before = outcome.prev_carrying[:, 0].to(torch.int32) == _EMPTY
     hands_empty_after = (empty_before & ~outcome.picked_up) | outcome.dropped
 
-    if instr["kinds"].shape[1] == 1:
+    if not composite:
         # a single-clause family: the clause's raw result is the status
         last_match = vs["last_match"]
         if done_actions:
             last_match = torch.where(~is_done_act[:, None], raw_match, last_match)
         return ({**vs, "pre_empty": hands_empty_after[:, None],
                  "pre_carry1": vs["carry1"], "last_match": last_match}, raw[:, 0])
+    with trace.span("babyai.sequence"):
+        return _sequence(vs, instr, raw, raw_match, is_done_act, hands_empty_after,
+                         done_actions)
 
+
+def _sequence(vs: dict, instr: dict, raw: torch.Tensor, raw_match: torch.Tensor,
+              is_done_act: torch.Tensor, hands_empty_after: torch.Tensor,
+              done_actions: bool) -> tuple[dict, torch.Tensor]:
+    """The composite path after the clauses: each operand's And, the
+    Before/After/And state machines, and the clause-local snapshots of the
+    clauses they evaluated."""
     a_stat, a_c0, a_c1 = _unpack(vs["a_packed"])
     b_stat, b_c0, b_c1 = _unpack(vs["b_packed"])
 

@@ -2,8 +2,9 @@
 it records, allocates and reads nothing; on it nests spans, keeps device
 counters by reference, and follows a profiler into its chrome trace; the
 engine, the GoTo generator, the fused engine, the kernel loader and PPO
-record every span and counter they own, in their parents; and the tools
-that read them (``tools/profile.py``'s span table, ``tools/bench.py``'s
+record every span and counter they own, in their parents (BossLevel's
+LevelGen and composite verifier stages too, none of them in GoTo); and the
+tools that read them (``tools/profile.py``'s span table, ``tools/bench.py``'s
 ``layers``)."""
 
 from __future__ import annotations
@@ -230,6 +231,68 @@ def test_goto_records_its_generator_stages_and_accepted_draws(monkeypatch):
     assert len(oks) == 2 and all(ok.shape == (16,) for ok in oks)
     assert _counters() == {"refill.draws": 32,
                            "refill.accepted": int(sum(int(ok.sum()) for ok in oks))}
+
+
+BOSS_SPANS = ("levelgen.layout", "levelgen.descs", "levelgen.instr", "babyai.track",
+              "babyai.clauses", "babyai.sequence")
+
+
+def _boss_venv():
+    venv = mgt.make_vec("BabyAI-BossLevel-v0", 16, reset_strategy="pooled", pool_refill=16,
+                        device=CPU)
+    _, state = venv.reset(rng.PRNGKey(7, CPU))
+    return venv, state
+
+
+def test_bosslevel_records_levelgen_and_composite_verifier_stages(monkeypatch):
+    """One traced BossLevel ``VectorEnv.step``: LevelGen's three stages
+    inside the refill's generator, the composite verifier's three inside
+    ``babyai.verify``, and the descriptor loop's passes and redraws."""
+    venv, state = _boss_venv()
+    env = type(venv.env)
+    passes, redrawn = [], []
+    match = env._descs_match
+
+    def counted_match(self, b, room_mask, locked_rect, has_locked, env8, descs):
+        passes.append(1)
+        if len(passes) > 1:
+            redrawn.append(int(env8.shape[0]))
+        return match(self, b, room_mask, locked_rect, has_locked, env8, descs)
+
+    monkeypatch.setattr(env, "_descs_match", counted_match)
+    trace.enable()
+    venv.step(state, rng.randint(rng.PRNGKey(1, CPU), (16,), 0, 7))
+    spans = _spans()
+    for name in ("levelgen.layout", "levelgen.descs"):
+        assert spans[name]["calls"] == 1 and spans[name]["parents"] == ["vector.generate"]
+    # the clause kinds before the descriptions, the shape and checks after
+    assert spans["levelgen.instr"]["calls"] == 2
+    assert spans["levelgen.instr"]["parents"] == ["vector.generate"]
+    for name in ("babyai.track", "babyai.clauses", "babyai.sequence"):
+        assert spans[name]["calls"] == 1 and spans[name]["parents"] == ["babyai.verify"], name
+    counters = _counters()
+    assert counters["levelgen.desc_passes"] == len(passes) >= 1
+    assert counters.get("levelgen.desc_redraws", 0) == sum(redrawn)
+
+
+def test_bosslevel_records_nothing_with_tracing_off():
+    venv, state = _boss_venv()
+    venv.step(state, rng.randint(rng.PRNGKey(2, CPU), (16,), 0, 7))
+    assert trace.report()["spans"] == {} and _counters() == {}
+
+
+def test_goto_records_none_of_the_bosslevel_spans():
+    """GoTo's one-clause verifier and its generator enter neither LevelGen
+    nor the composite path."""
+    venv = mgt.make_vec("BabyAI-GoTo-v0", 16, reset_strategy="pooled", pool_refill=16,
+                        device=CPU)
+    _, state = venv.reset(rng.PRNGKey(4, CPU))
+    trace.enable()
+    venv.step(state, rng.randint(rng.PRNGKey(5, CPU), (16,), 0, 7))
+    spans = _spans()
+    assert "babyai.verify" in spans and "vector.generate" in spans
+    assert not set(BOSS_SPANS) & set(spans)
+    assert not {"levelgen.desc_passes", "levelgen.desc_redraws"} & set(_counters())
 
 
 def test_fused_engine_and_kernel_loader_record_their_spans(monkeypatch):
