@@ -26,7 +26,14 @@ printing a result:
    and of keys whose two words lie apart, ``bits`` of shapes (), (30,),
    (484,) and (4096, 7) with and without ``rows``, ``fold_in`` by an int and
    by broadcast lanes, keys of all-zero and all-one words, empty batches,
-   each with the launches it must make, and the flipped-bit self-check;
+   each with the launches it must make, and the flipped-bit self-check; the
+   distractors kernel through ``add_distractors`` against the plain loop on
+   the CPU, one launch a call: GoTo's 3x3 rooms of 8 and a 2x3 lattice of
+   rooms of 4 that fill, at B in {1, 5, 33, 4097}, with duplicates, unique
+   until the combos run out, a fixed column, a row, ``enabled`` and
+   ``color_override`` per env, a fixed color while disabled, init_rooms'
+   expanded grid and strided keys, a column-major grid, and the
+   flipped-bit self-check;
 4. drive each main path with every kernel's launch count zeroed just before
    and read just after: ``make_vec("MiniGrid-DoorKey-8x8-v0", 4096,
    reset_strategy="pooled", pool_refill=64)`` through the bench loop of
@@ -34,7 +41,9 @@ printing a result:
    first truncation wave, then the same program at B=16 on the card and on
    the CPU, which must agree bitwise step by step and in the final state;
    then ``make_vec("BabyAI-GoTo-v0", 4096)``, each of three steps exactly
-   200 threefry launches (its 16-level refill's draws);
+   20 threefry launches and one distractors launch (its 16-level refill's
+   draws), and every distractors launch of a B=4096 GoTo and BossLevel
+   reset and three refills bitwise the plain loop on the CPU;
    then ``FusedVectorEnv(make("MiniGrid-DoorKey-8x8-v0"), 4096)`` for 648
    steps (one ``fused_step`` launch a step, one ``obs_gather`` launch at
    reset, every env regenerated at least once), and the same fused program
@@ -182,7 +191,8 @@ printing a result:
    beside B=4096 with its bound, the threefry kernel and its plain formula
    at the GoTo generator's shapes (a 16 x 5 split, 16 x 30 and 4096 x 484
    uniform bits) with the bound and the host time a call takes to issue,
-   and time both engines end to end with the
+   the distractors kernel and its plain loop on GoTo's call at 16 and 4096
+   levels with the bound and the host time of a call, and time both engines end to end with the
    actions of each run drawn before its timer starts.
 
 It prints one JSON line of kernel records, then the card line as
@@ -429,7 +439,16 @@ INT32_OPS_PER_S = 33.5e12
 # injections, about 80 integer operations (as fused_bound_ms counts it)
 HASH_OPS = 80
 GOTO = "BabyAI-GoTo-v0"
-GOTO_HASHES_PER_STEP = 200  # one VectorEnv.step: the 16-level refill's draws
+BOSS = "BabyAI-BossLevel-v0"
+# one VectorEnv.step: the 16-level refill's draws outside the distractors,
+# whose 18 placements (180 hashes before) are one distractors launch
+GOTO_HASHES_PER_STEP = 20
+GOTO_DISTRACTOR_LAUNCHES_PER_STEP = 1
+# the distractors kernel's useful hashes an object: the 5-way split, 4 a
+# randint (the combo, the room's column and row) or the combo's 30 words
+# (all_unique), the cell's key and its randint
+DISTRACTOR_HASHES = {False: 5 + 4 + 4 + 4 + 1 + 4, True: 5 + 30 + 4 + 4 + 1 + 4}
+DISTRACTORS_TIMED = (16, NUM_ENVS)  # GoTo's refill and reset, 18 objects a level
 # (name, keys, counters a key, the call) timed in phase 5: the GoTo
 # generator's 5-way split of 16 keys and uniform draws of 16 x 30 and 4096 x 484
 THREEFRY_TIMED = (("split 16x5", 16, 5, "split"), ("bits of uniform 16x30", 16, 30, "bits"),
@@ -622,33 +641,184 @@ def check_threefry_kernel(dev, threefry) -> int:
     return worst
 
 
-def check_goto_hashes(dev, threefry) -> dict:
+def check_goto_hashes(dev, threefry, distractors) -> dict:
     """The main path's hashes: one ``VectorEnv.step`` of GoTo at B=4096
     (pooled, its 16-level best-effort refill) adds exactly
-    GOTO_HASHES_PER_STEP threefry launches, on three steps."""
+    GOTO_HASHES_PER_STEP threefry launches and
+    GOTO_DISTRACTOR_LAUNCHES_PER_STEP distractors launches, on three
+    steps."""
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
 
     venv = minigrid_tpu_torch.make_vec(GOTO, NUM_ENVS, device=dev)
     if venv.pool_refill != 16:
         raise AssertionError(f"{GOTO}: pool_refill {venv.pool_refill}, the count assumes 16")
-    before = threefry.LAUNCHES
+    before = threefry.LAUNCHES, distractors.LAUNCHES
     _, state = venv.reset(rng.PRNGKey(4, dev))
     torch.cuda.synchronize()
-    reset = threefry.LAUNCHES - before
+    reset = threefry.LAUNCHES - before[0], distractors.LAUNCHES - before[1]
     per_step = []
     for k in rng.split(rng.PRNGKey(5, dev), 3):
         action = rng.randint(k, (NUM_ENVS,), 0, venv.env.num_actions)
         torch.cuda.synchronize()
-        before = threefry.LAUNCHES
+        before = threefry.LAUNCHES, distractors.LAUNCHES
         _, state, *_ = venv.step(state, action)
         torch.cuda.synchronize()
-        per_step.append(threefry.LAUNCHES - before)
-    if per_step != [GOTO_HASHES_PER_STEP] * 3:
-        raise AssertionError(f"{GOTO} B={NUM_ENVS}: threefry launches a step {per_step}, "
-                             f"expected {GOTO_HASHES_PER_STEP}")
-    log(f"  {GOTO} B={NUM_ENVS}: {reset} threefry launches at reset, {per_step} a step")
-    return {"reset": reset, "per_step": per_step}
+        per_step.append((threefry.LAUNCHES - before[0], distractors.LAUNCHES - before[1]))
+    want = (GOTO_HASHES_PER_STEP, GOTO_DISTRACTOR_LAUNCHES_PER_STEP)
+    if per_step != [want] * 3:
+        raise AssertionError(f"{GOTO} B={NUM_ENVS}: (threefry, distractors) launches a "
+                             f"step {per_step}, expected {want}")
+    log(f"  {GOTO} B={NUM_ENVS}: {reset[0]} threefry and {reset[1]} distractors launches "
+        f"at reset, {per_step} a step")
+    return {"reset": reset[0], "per_step": [t for t, _ in per_step],
+            "distractors_reset": reset[1], "distractors_per_step": [d for _, d in per_step]}
+
+
+def _builder_on(b: dict, dev) -> dict:
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def distractor_cases() -> list:
+    """(what, env, builder, keys, kwargs) on the CPU: every argument form of
+    ``add_distractors``' sequential path.  GoTo's builder (3x3 rooms of 8,
+    after its doors) at ragged batches and at B=4096 with GoTo's own call;
+    a 2x3 lattice of rooms of 4 whose rooms fill (``ok`` False) and whose
+    combos run out under ``all_unique``; a fixed column with the row drawn
+    and a row per env with the column drawn; ``enabled`` and
+    ``color_override`` as Python values and per env (sentinels and a color
+    past 255 included); init_rooms' expanded grid, connect_all's rows of a
+    wider scatter and a column-major grid; keys cut from a wider split."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.core.roomgrid import RoomGridEnv
+
+    gen = torch.Generator().manual_seed(20261018)
+    goto = minigrid_tpu_torch.make(GOTO)
+    small = RoomGridEnv(room_size=4, num_rows=2, num_cols=3)
+    cases = []
+    for env, place_agent in ((goto, goto.place_agent_any),
+                             (small, lambda b, k, p: small.place_agent_in_room(b, k, p, 1, 1))):
+        p = env.default_params
+        for n in (1, 5, 33, NUM_ENVS + 1):
+            k = rng.split(_key_words(gen, n), 5).unbind(1)
+            fresh = env.init_rooms(k[0], p)
+            b = env.connect_all(place_agent(fresh, k[1], p), k[2])
+            on = torch.rand(n, generator=gen) < 0.7
+            col = torch.tensor([-1, 3, 7, 300, 10])[torch.randint(0, 5, (n,), generator=gen)]
+            rows = torch.randint(0, env.num_rows, (n,), generator=gen, dtype=torch.int32)
+            name = f"{type(env).__name__} B={n}"
+            cases += [
+                (f"{name} 18, duplicates", env, b, k[3], dict(num_distractors=18,
+                                                                all_unique=False)),
+                (f"{name} 36 unique: the combos run out", env, b, k[4],
+                 dict(num_distractors=36)),
+                (f"{name} fixed column 1", env, b, k[3], dict(i=1, num_distractors=9)),
+                (f"{name} row per env, enabled and color per env", env, b, k[4],
+                 dict(j=rows, num_distractors=7, enabled=on, color_override=col)),
+                (f"{name} color 4, disabled", env, b, k[3],
+                 dict(num_distractors=5, all_unique=False, color_override=4,
+                      enabled=False)),
+                (f"{name} the expanded grid, strided keys", env, fresh,
+                 rng.split(k[4], 3)[:, 1], dict(num_distractors=4)),
+                (f"{name} a column-major grid", env,
+                 {**b, "grid": b["grid"].transpose(1, 2).contiguous().transpose(1, 2)},
+                 k[3], dict(num_distractors=6)),
+            ]
+    return cases
+
+
+def _distractor_outputs(out) -> list:
+    b, added, positions = out
+    return [b["grid"], b["obj_mask"], added, positions]
+
+
+def check_distractors_kernel(dev, distractors) -> int:
+    """Phase 3: every case of :func:`distractor_cases` through
+    ``add_distractors`` on the card (one launch of the kernel each) against
+    the plain loop on the CPU, bitwise: grid, combo mask, added pairs,
+    positions, and every other builder field passed through; the
+    flipped-bit self-check on the widest grid.  Returns the largest
+    |kernel - plain| (0 when bitwise equal)."""
+    worst, widest = 0, None
+    for what, env, b, keys, kwargs in distractor_cases():
+        p = env.default_params
+        before = distractors.LAUNCHES
+        got = env.add_distractors(_builder_on(b, dev), keys.to(dev), p, **{
+            k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()})
+        torch.cuda.synchronize()
+        made = distractors.LAUNCHES - before
+        want = env.add_distractors(b, keys, p, **kwargs)
+        if made != 1:
+            raise AssertionError(f"distractors {what}: {made} launches, expected 1")
+        for name, g, w in zip(("grid", "obj_mask", "added", "positions"),
+                              _distractor_outputs(got), _distractor_outputs(want)):
+            g = g.cpu()
+            bad = mismatches(g, w)
+            if bad:
+                raise AssertionError(f"distractors kernel != plain for {what}: {name} "
+                                     f"{bad} entries")
+            worst = max(worst, max_abs_err(g, w))
+        for k in b:
+            if k not in ("grid", "obj_mask") and mismatches(got[0][k].cpu(), want[0][k]):
+                raise AssertionError(f"distractors {what}: {k} did not pass through")
+        if widest is None or want[0]["grid"].numel() > widest[1].numel():
+            widest = (got[0]["grid"].cpu(), want[0]["grid"], what)
+        placed = int(want[0]["obj_mask"].sum() - b["obj_mask"].sum())
+        log(f"  distractors {what}: bitwise equal, 1 launch, {placed} combos set")
+    check_flipped_bit(*widest)
+    return worst
+
+
+def check_distractor_levels(dev, distractors) -> dict:
+    """Phase 4: every sequential ``add_distractors`` call of a B=4096 GoTo
+    and BossLevel reset and of their 16-level refills (three steps each),
+    on the card through the kernel, held bitwise against the plain loop on
+    the CPU from copies of the same inputs.  Returns the calls held per
+    level."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+    from minigrid_tpu_torch.core.roomgrid import RoomGridEnv
+
+    calls: list = []
+    orig = RoomGridEnv.add_distractors
+
+    def recorded(self, b, keys, params, *args, **kwargs):
+        before = distractors.LAUNCHES
+        out = orig(self, b, keys, params, *args, **kwargs)
+        if distractors.LAUNCHES != before:
+            calls.append((self, {k: v.cpu() for k, v in b.items()}, keys.cpu(), params,
+                          args, {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                 for k, v in kwargs.items()},
+                          [t.cpu() for t in _distractor_outputs(out)]))
+        return out
+
+    held = {}
+    RoomGridEnv.add_distractors = recorded
+    try:
+        for env_id, seed in ((GOTO, 40), (BOSS, 41)):
+            calls.clear()
+            venv = minigrid_tpu_torch.make_vec(env_id, NUM_ENVS, device=dev)
+            _, state = venv.reset(rng.PRNGKey(seed, dev))
+            for k in rng.split(rng.PRNGKey(seed + 100, dev), 3):
+                action = rng.randint(k, (NUM_ENVS,), 0, venv.env.num_actions)
+                _, state, *_ = venv.step(state, action)
+            torch.cuda.synchronize()
+            for env, b, keys, params, args, kwargs, got in calls:
+                want = _distractor_outputs(orig(env, b, keys, params, *args, **kwargs))
+                for name, g, w in zip(("grid", "obj_mask", "added", "positions"), got, want):
+                    bad = mismatches(g, w)
+                    if bad:
+                        raise AssertionError(f"{env_id}: a distractors call of {keys.shape[0]} "
+                                             f"levels, {name} differs in {bad} entries")
+            held[env_id] = [c[2].shape[0] for c in calls]
+            log(f"  {env_id} B={NUM_ENVS}: {len(calls)} distractors calls bitwise the plain "
+                f"loop (levels a call: {held[env_id]})")
+    finally:
+        RoomGridEnv.add_distractors = orig
+    if not all(held.values()):
+        raise AssertionError(f"a level set ran no distractors kernel: {held}")
+    return held
 
 
 def check_gather_doorkey(dev, obs_gather) -> tuple[int, dict]:
@@ -3477,6 +3647,57 @@ def time_threefry(threefry) -> list[dict]:
     return out
 
 
+def distractors_bound_ms(n: int, cells: int, num: int, all_unique: bool
+                         ) -> tuple[float, str, dict]:
+    """Least time for ``n`` levels of ``num`` distractors on grids of
+    ``cells`` words: each grid read and written once, the keys, poses and
+    combo masks read, the pairs and positions written, over HBM bandwidth,
+    against the useful hashes (DISTRACTOR_HASHES an object) at HASH_OPS
+    operations each over the int32 rate."""
+    nbytes = n * (2 * cells * 4 + 16 + 8 + 2 * 30 + 2 * num * 2 * 4)
+    ops = n * num * DISTRACTOR_HASHES[all_unique] * HASH_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), bound_by, {"bytes": nbytes, "int_ops": ops}
+
+
+def time_distractors(dev) -> list[dict]:
+    """Phase 5: GoTo's call (18 objects with duplicates over its builder
+    after the doors) at each of DISTRACTORS_TIMED levels: the kernel's and
+    the plain loop's device time (CUDA graphs; the loop's hashes on the
+    threefry kernel), the bound, and the host time one call of each
+    takes."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+
+    env = minigrid_tpu_torch.make(GOTO)
+    p = env.default_params
+    out = []
+    for n in DISTRACTORS_TIMED:
+        k = rng.split(rng.split(rng.PRNGKey(n, dev), n), 5).unbind(1)
+        b = env.connect_all(env.place_agent_any(env.init_rooms(k[0], p), k[1], p), k[2])
+
+        def kernel(b=b, key=k[3]):
+            return env.add_distractors(b, key, p, num_distractors=18, all_unique=False)
+
+        def plain(b=b, key=k[3]):
+            return env._add_distractors_plain(b, key, p, None, None, 18, False, True, None)
+
+        for g, w in zip(_distractor_outputs(kernel()), _distractor_outputs(plain())):
+            if mismatches(g, w):
+                raise AssertionError(f"distractors B={n}: kernel != plain on the card")
+        cells = b["grid"].shape[1] * b["grid"].shape[2]
+        bound, bound_by, work = distractors_bound_ms(n, cells, 18, False)
+        out.append({"what": f"{GOTO} B={n} 18 objects", "levels": n,
+                    "ms": gpu_time_ms(kernel),
+                    "plain_ms": gpu_time_ms(plain, per_graph=2, reps=10),
+                    "bound_ms": bound, "bound_by": bound_by, "work": work,
+                    "host_us": host_us(kernel, HOST_CALLS // 10),
+                    "plain_host_us": host_us(plain, 5)})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a card",
@@ -3491,7 +3712,7 @@ def main() -> int:
     log(f"  {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
-    from minigrid_tpu_torch.ops import _build, fused_step, obs_gather, threefry
+    from minigrid_tpu_torch.ops import _build, distractors, fused_step, obs_gather, threefry
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -3511,10 +3732,12 @@ def main() -> int:
     fused_err, fused_batches = check_fused_kernel(dev, fused_step)
     _, fused_args, fused_spec = fused_batches[0]
     threefry_err = check_threefry_kernel(dev, threefry)
+    distractors_err = check_distractors_kernel(dev, distractors)
 
     log("phase 4: the main paths")
     main = drive_main_path(dev, counters)
-    goto_hashes = check_goto_hashes(dev, threefry)
+    goto_hashes = check_goto_hashes(dev, threefry, distractors)
+    check_distractor_levels(dev, distractors)
     card_matches_cpu(dev)
     fused_main = drive_fused_path(dev, counters)
     fused_card_matches_cpu(dev)
@@ -3646,6 +3869,14 @@ def main() -> int:
             f"host {r['host_us']:.2f} us a wrapper call, {r['rng_host_us']:.2f} us a "
             f"core/rng.py call, {r['plain_host_us']:.1f} us a plain call [{card}]")
 
+    distractors_times = time_distractors(dev)
+    for r in distractors_times:
+        log(f"  distractors {r['what']}: kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} us "
+            f"({r['bound_by']}; {r['work']}), {r['bound_ms'] / r['ms']:.3f} of the bound; "
+            f"host {r['host_us']:.2f} us a kernel call, {r['plain_host_us']:.1f} us a "
+            f"plain call [{card}]")
+
     from minigrid_tpu_torch.tools import bench
 
     venv = bench.make_venv(dev)
@@ -3707,6 +3938,19 @@ def main() -> int:
         "bound_by": threefry_times[-1]["bound_by"],
         "library_ms": None,
         "shapes": threefry_times,
+    }, {
+        "name": "distractors",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/distractors.cu",
+        "replaces": None,
+        "launches": goto_hashes["distractors_per_step"][0],
+        "max_abs_err": distractors_err,
+        "ms": distractors_times[0]["ms"],
+        "plain_ms": distractors_times[0]["plain_ms"],
+        "bound_ms": distractors_times[0]["bound_ms"],
+        "bound_by": distractors_times[0]["bound_by"],
+        "library_ms": None,
+        "shapes": distractors_times,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.sampling import SORTED_COLOR_IDS, rand_color
 from minigrid_tpu_torch.core.state import EnvParams, empty_grid, fixed_pose
+from minigrid_tpu_torch.ops import distractors
 from minigrid_tpu_torch.utils import trace
 
 _DOOR = C.OBJECT_TO_IDX["door"]
@@ -487,7 +488,9 @@ class RoomGridEnv(Env):
         """Random key/ball/box distractors.  Uniqueness is a draw over the 30
         (kind, color) combos not yet present.  ``color_override`` forces the
         written color while the draws stay as they are.  Returns (builder,
-        int32[B, num, 2] (type id, color id), int32[B, num, 2] positions)."""
+        int32[B, num, 2] (type id, color id), int32[B, num, 2] positions).
+        With a room drawn per object on a CUDA tensor, the whole loop is one
+        launch of ``ops/distractors.py``'s kernel."""
         with trace.span("roomgrid.distractors"):
             dev = keys.device
             n = keys.shape[0]
@@ -500,28 +503,41 @@ class RoomGridEnv(Env):
                 none = torch.zeros((n, 0, 2), dtype=torch.int32, device=dev)
                 return b, none, none.clone()
 
-            # the JAX package's lax.scan: each draw consumes the builder the last
-            # one produced, and the key chain is split(key, 5)[0] per draw
-            sorted_ids = G.const(SORTED_COLOR_IDS, dev, torch.int32)
-            kind_ids = G.const(_KIND_IDS, dev, torch.int32)
-            added, positions = [], []
-            for _ in range(num_distractors):
-                keys, k_tc, k_i, k_j, k_pos = rng.split(keys, 5).unbind(1)
-                if all_unique:
-                    logits = torch.where(b["obj_mask"], -torch.inf, 0.0)
-                    combo = rng.categorical(k_tc, logits)
-                else:
-                    combo = rng.randint(k_tc, (), 0, _NUM_COMBOS)
-                kind_local = combo // 10
-                color = G.take1(sorted_ids, combo % 10)
-                write_color = color if color_override is None else color_override
-                ri = rng.randint(k_i, (), 0, self.num_cols) if i is None else i
-                rj = rng.randint(k_j, (), 0, self.num_rows) if j is None else j
-                b, _, pos = self.add_object(b, k_pos, params, ri, rj, kind=kind_local,
-                                            color=write_color, enabled=enabled)
-                added.append(torch.stack([G.take1(kind_ids, kind_local), color], dim=1))
-                positions.append(pos)
-            return b, torch.stack(added, dim=1), torch.stack(positions, dim=1)
+            if dev.type != "cpu":
+                return distractors.place(
+                    b, keys, (self.num_rows, self.num_cols, self.room_size), i, j,
+                    num_distractors, all_unique, enabled, color_override)
+            return self._add_distractors_plain(b, keys, params, i, j, num_distractors,
+                                               all_unique, enabled, color_override)
+
+    def _add_distractors_plain(self, b: dict, keys: torch.Tensor, params: EnvParams,
+                               i, j, num: int, all_unique: bool, enabled, color_override
+                               ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+        """The sequential path as eager ops, the plain version of
+        ``ops/distractors.py``'s kernel: the JAX package's lax.scan, each draw
+        consuming the builder the last one produced, the key chain
+        ``split(key, 5)[0]`` per draw."""
+        dev = keys.device
+        sorted_ids = G.const(SORTED_COLOR_IDS, dev, torch.int32)
+        kind_ids = G.const(_KIND_IDS, dev, torch.int32)
+        added, positions = [], []
+        for _ in range(num):
+            keys, k_tc, k_i, k_j, k_pos = rng.split(keys, 5).unbind(1)
+            if all_unique:
+                logits = torch.where(b["obj_mask"], -torch.inf, 0.0)
+                combo = rng.categorical(k_tc, logits)
+            else:
+                combo = rng.randint(k_tc, (), 0, _NUM_COMBOS)
+            kind_local = combo // 10
+            color = G.take1(sorted_ids, combo % 10)
+            write_color = color if color_override is None else color_override
+            ri = rng.randint(k_i, (), 0, self.num_cols) if i is None else i
+            rj = rng.randint(k_j, (), 0, self.num_rows) if j is None else j
+            b, _, pos = self.add_object(b, k_pos, params, ri, rj, kind=kind_local,
+                                        color=write_color, enabled=enabled)
+            added.append(torch.stack([G.take1(kind_ids, kind_local), color], dim=1))
+            positions.append(pos)
+        return b, torch.stack(added, dim=1), torch.stack(positions, dim=1)
 
     def _add_distractors_oneshot(self, b: dict, keys: torch.Tensor,
                                  params: EnvParams, i, j, num: int,

@@ -30,8 +30,9 @@
 //
 // Design: one thread per element in a grid-stride loop, the key words read
 // once per element (neighbouring threads of one key read the same two words,
-// which L1 serves), the 20 rounds unrolled in registers, 32-bit index
-// arithmetic (the wrapper refuses what overflows it).
+// which L1 serves), the 20 rounds unrolled in registers (threefry.cuh, which
+// distractors.cu shares), 32-bit index arithmetic (the wrapper refuses what
+// overflows it).
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (CUDA events over CUDA-graph
 // replays): 1.48-1.57 us for a 16 x 5 split and 1.73-1.77 us for 16 x 30 bits,
@@ -41,11 +42,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;  // 16 blocks an SM; the loop strides past them
-constexpr uint32_t kParity = 0x1BD11BDA;
 
 struct Args {
   const int64_t* keys;
@@ -56,39 +58,6 @@ struct Args {
   int ds_i, ds_j;
   uint32_t base;
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-__device__ __forceinline__ void mix4(uint32_t& x0, uint32_t& x1, int r0, int r1, int r2,
-                                     int r3) {
-  x0 += x1; x1 = rotl(x1, r0) ^ x0;
-  x0 += x1; x1 = rotl(x1, r1) ^ x0;
-  x0 += x1; x1 = rotl(x1, r2) ^ x0;
-  x0 += x1; x1 = rotl(x1, r3) ^ x0;
-}
-
-// Threefry-2x32, 20 rounds, of the counter pair (0, c) under (k0, k1):
-// minigrid_tpu_torch/core/rng.py::threefry2x32.
-__device__ __forceinline__ void hash(uint32_t k0, uint32_t k1, uint32_t c, uint32_t& y0,
-                                     uint32_t& y1) {
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
-  uint32_t x0 = k0;
-  uint32_t x1 = c + k1;
-  mix4(x0, x1, 13, 15, 26, 6);
-  x0 += k1; x1 += k2 + 1u;
-  mix4(x0, x1, 17, 29, 16, 24);
-  x0 += k2; x1 += k0 + 2u;
-  mix4(x0, x1, 13, 15, 26, 6);
-  x0 += k0; x1 += k1 + 3u;
-  mix4(x0, x1, 17, 29, 16, 24);
-  x0 += k1; x1 += k2 + 4u;
-  mix4(x0, x1, 13, 15, 26, 6);
-  x0 += k2; x1 += k0 + 5u;
-  y0 = x0;
-  y1 = x1;
-}
 
 template <bool kData, bool kXor>
 __global__ void __launch_bounds__(kThreads) threefry_kernel(const __grid_constant__ Args a) {
@@ -101,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(const __grid_constan
     const uint32_t c = kData ? static_cast<uint32_t>(a.data[i * a.ds_i + j * a.ds_j])
                              : a.base + static_cast<uint32_t>(j);
     uint32_t y0, y1;
-    hash(static_cast<uint32_t>(k[0]), static_cast<uint32_t>(k[a.kw]), c, y0, y1);
+    threefry_hash::hash(static_cast<uint32_t>(k[0]), static_cast<uint32_t>(k[a.kw]), c, y0, y1);
     if (kXor) {
       a.out[e] = static_cast<int64_t>(y0 ^ y1);
     } else {

@@ -35,9 +35,9 @@ concatenation and a sum, two launches), which bounds what the counter holds.
 :func:`report` returns ``{"spans": {name: {"calls", "seconds",
 "self_seconds", "parents"}}, "counters": {name: int}}``; the counters include
 the kernel wrappers' own running launch counts, ``obs_gather.LAUNCHES``,
-``fused_step.LAUNCHES`` and ``threefry.LAUNCHES``, as ``obs_gather.launches``,
-``fused_step.launches`` and ``threefry.launches`` (:func:`reset` leaves those
-three alone).  The record
+``fused_step.LAUNCHES``, ``threefry.LAUNCHES`` and ``distractors.LAUNCHES``, as
+``obs_gather.launches``, ``fused_step.launches``, ``threefry.launches`` and
+``distractors.launches`` (:func:`reset` leaves those four alone).  The record
 is one per process, and spans nest as one thread opens them.
 """
 
@@ -153,7 +153,7 @@ def report() -> dict:
     """What was recorded since the last :func:`reset`: ``spans`` (per name
     ``calls``, ``seconds``, ``self_seconds``, ``parents``) and ``counters``
     (the device tensors summed now, one host read per counter)."""
-    from minigrid_tpu_torch.ops import fused_step, obs_gather, threefry
+    from minigrid_tpu_torch.ops import distractors, fused_step, obs_gather, threefry
 
     counters = dict(_counts)
     for name, pending in _pending.items():
@@ -163,6 +163,7 @@ def report() -> dict:
     counters["obs_gather.launches"] = obs_gather.LAUNCHES
     counters["fused_step.launches"] = fused_step.LAUNCHES
     counters["threefry.launches"] = threefry.LAUNCHES
+    counters["distractors.launches"] = distractors.LAUNCHES
     spans = {name: {"calls": s.calls, "seconds": s.seconds,
                     "self_seconds": s.self_seconds, "parents": sorted(s.parents)}
              for name, s in _spans.items()}

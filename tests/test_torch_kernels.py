@@ -11,6 +11,7 @@ nor the JAX package, so on a machine with a card and without JAX it runs as
 from __future__ import annotations
 
 import ast
+import ctypes
 import dataclasses
 import re
 from pathlib import Path
@@ -22,7 +23,7 @@ import torch
 import minigrid_tpu_torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import rng
-from minigrid_tpu_torch.ops import _build, fused_step, obs_gather, threefry
+from minigrid_tpu_torch.ops import _build, distractors, fused_step, obs_gather, threefry
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "minigrid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -118,7 +119,7 @@ def test_library_path_follows_source_content(tmp_path, monkeypatch):
 def test_every_kernel_source_is_built():
     """Each csrc/*.cu has a wrapper module that loads it by name."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["fused_step", "obs_gather", "threefry"]
+    assert sources == ["distractors", "fused_step", "obs_gather", "threefry"]
 
 
 def _fused_inputs(env_id: str, n: int, device, seed: int = 0, walk: int = 12,
@@ -206,6 +207,11 @@ def test_wrappers_know_the_kernels_tiles():
     assert _constants("fused_step")["kTile"] == fused_step.TILE
     assert _constants("obs_gather")["kTile"] == obs_gather.TILE
     assert _constants("fused_step")["kAgentWidth"] == fused_step.A_WIDTH
+    consts = _constants("distractors")
+    assert (consts["kWarps"], consts["kCombos"], consts["kEmpty"]) == (
+        distractors.WARPS, distractors.NUM_COMBOS, C.OBJECT_TO_IDX["empty"])
+    assert [consts[k] for k in ("kAllUnique", "kDrawI", "kDrawJ", "kOverride")] == [
+        distractors.ALL_UNIQUE, distractors.DRAW_I, distractors.DRAW_J, distractors.OVERRIDE]
 
 
 def test_kernel_ab_phase_lines_are_in_the_sources():
@@ -233,6 +239,7 @@ def test_wrappers_size_the_tile_as_the_kernels_do(w, h, v):
     """The wrappers' shared-memory sizes are the kernels' own formulas."""
     assert fused_step.fused_tile_bytes(w, h, v) == _tile_bytes_in_source("fused_step")(w * h, v)
     assert obs_gather.gather_tile_bytes(w, h) == _tile_bytes_in_source("obs_gather")(w * h, v)
+    assert distractors.tile_bytes(w, h) == _tile_bytes_in_source("distractors")(w * h, v)
     assert fused_step.fused_tile_bytes(8, 8, 7) == 8112
 
 
@@ -691,6 +698,123 @@ def test_threefry_wrapper_refuses_data_on_another_device(cuda):
     keys = rng.split(rng.PRNGKey(0, cuda), 4)
     with pytest.raises(ValueError, match="fold_in data"):
         threefry.launch(threefry.fold_layout(keys, torch.arange(4)))
+
+
+# -- the distractors kernel ----------------------------------------------------------
+
+def _distractor_args(n: int = 6, **overrides) -> dict:
+    """A GoTo builder after its doors, on the CPU, and the keys and
+    arguments of GoTo's sequential call."""
+    env = minigrid_tpu_torch.make("BabyAI-GoTo-v0")
+    p = env.default_params
+    k = rng.split(rng.split(rng.PRNGKey(7, "cpu"), n), 4).unbind(1)
+    b = env.connect_all(env.place_agent_any(env.init_rooms(k[0], p), k[1], p), k[2])
+    args = dict(b=b, keys=k[3], lattice=(env.num_rows, env.num_cols, env.room_size), i=None,
+                j=None, num=18, all_unique=False, enabled=True, color_override=None)
+    return {**args, **overrides}
+
+
+def _with(b: dict, **fields) -> dict:
+    return {**b, **fields}
+
+
+@pytest.mark.parametrize("what,overrides,error", [
+    ("keys int32", lambda a: dict(keys=a["keys"].int()), TypeError),
+    ("keys [B]", lambda a: dict(keys=a["keys"][:, 0]), TypeError),
+    ("grid int64", lambda a: dict(b=_with(a["b"], grid=a["b"]["grid"].long())), TypeError),
+    ("obj_mask int32", lambda a: dict(b=_with(a["b"], obj_mask=a["b"]["obj_mask"].int())),
+     TypeError),
+    ("agent_pos int64", lambda a: dict(b=_with(a["b"], agent_pos=a["b"]["agent_pos"].long())),
+     TypeError),
+    ("enabled int", lambda a: dict(enabled=torch.ones(6, dtype=torch.int32)), TypeError),
+    ("enabled a float", lambda a: dict(enabled=0.5), TypeError),
+    ("color_override float", lambda a: dict(color_override=torch.ones(6)), TypeError),
+    ("color_override past int32", lambda a: dict(color_override=2**31), ValueError),
+    ("i a bool tensor", lambda a: dict(i=torch.ones(6, dtype=torch.bool)), TypeError),
+    ("j for 5 of 6 envs", lambda a: dict(j=torch.zeros(5, dtype=torch.int32)), ValueError),
+    ("both rooms fixed", lambda a: dict(i=1, j=2), ValueError),
+    ("no object", lambda a: dict(num=0), ValueError),
+    ("one room", lambda a: dict(lattice=(1, 1, 8)), ValueError),
+    ("all_unique an int", lambda a: dict(all_unique=1), TypeError),
+])
+def test_distractors_wrapper_rejects_what_it_does_not_take(what, overrides, error):
+    """Forms and dtypes the kernel does not take are refused before the
+    device is looked at, so on the CPU too; what it takes reaches the
+    device check, which refuses the CPU."""
+    args = _distractor_args()
+    with pytest.raises(error):
+        distractors.place(**{**args, **overrides(args)})
+    with pytest.raises(ValueError, match="no distractors kernel for device cpu"):
+        distractors.place(**args)
+
+
+def test_distractors_cpu_tensors_take_the_plain_loop_and_do_not_count(monkeypatch):
+    """On the CPU ``add_distractors``' sequential path is the plain loop:
+    the wrapper is never called and nothing counts a launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the distractors kernel")
+
+    monkeypatch.setattr(distractors, "place", refuse)
+    args = _distractor_args(enabled=torch.tensor([True, False] * 3), color_override=4)
+    env = minigrid_tpu_torch.make("BabyAI-GoTo-v0")
+    before = distractors.LAUNCHES
+    got = env.add_distractors(args["b"], args["keys"], env.default_params, num_distractors=18,
+                              all_unique=False, enabled=args["enabled"], color_override=4)
+    want = env._add_distractors_plain(args["b"], args["keys"], env.default_params, None, None,
+                                      18, False, args["enabled"], 4)
+    assert distractors.LAUNCHES == before
+    for g, w in zip((got[0]["grid"], got[0]["obj_mask"], got[1], got[2]),
+                    (want[0]["grid"], want[0]["obj_mask"], want[1], want[2])):
+        assert torch.equal(g, w)
+
+
+def test_distractors_args_are_the_kernels_struct():
+    """``ops/distractors.py::Args`` lists csrc/distractors.cu's ``Args``
+    fields in order, pointers as pointers and ints as int32, and the
+    kernel's tables are the port's (the library holds the size too)."""
+    from minigrid_tpu_torch.core.roomgrid import _KIND_IDS
+
+    src = (_build.CSRC / "distractors.cu").read_text()
+    body = re.search(r"struct Args \{(.*?)\n\};", src, re.S)[1]
+    fields = []
+    for decl in re.findall(r"^\s*([^/\n][^;]*);", body, re.M):
+        kind = "ptr" if "*" in decl else "int"
+        names = decl.split("*")[-1] if kind == "ptr" else decl.split(None, 1)[1]
+        fields += [(re.sub(r"\[.*", "", name).strip(), kind) for name in names.split(",")]
+    want = [(name, "ptr" if ctype is ctypes.c_void_p else "int")
+            for name, ctype in distractors.Args._fields_]
+    assert fields == want
+    assert list(distractors.KIND_IDS) == list(_KIND_IDS)
+
+
+@pytest.mark.gpu
+def test_distractors_kernel_matches_plain(cuda):
+    """``chip_smoke.py`` phase 3's distractors cases: every argument form of
+    the sequential path on the card bitwise the plain loop on the CPU, one
+    launch each, and the flipped-bit self-check."""
+    import chip_smoke
+
+    assert chip_smoke.check_distractors_kernel(cuda, distractors) == 0
+
+
+@pytest.mark.gpu
+def test_goto_step_is_one_distractors_launch(cuda):
+    """A GoTo ``VectorEnv.step`` at B=4096: one distractors launch and the
+    20 threefry launches of the refill's other draws."""
+    import chip_smoke
+
+    out = chip_smoke.check_goto_hashes(cuda, threefry, distractors)
+    assert out["distractors_per_step"] == [1, 1, 1] and out["per_step"] == [20, 20, 20]
+
+
+@pytest.mark.gpu
+def test_distractors_kernel_on_goto_and_boss_levels(cuda):
+    """Every distractors launch of a B=4096 GoTo and BossLevel reset and
+    their 16-level refills, bitwise the plain loop on the CPU."""
+    import chip_smoke
+
+    held = chip_smoke.check_distractor_levels(cuda, distractors)
+    assert 16 in held["BabyAI-GoTo-v0"] and 16 in held["BabyAI-BossLevel-v0"]
 
 
 # -- the learner on the card ----------------------------------------------------------

@@ -109,14 +109,20 @@ def test_top_k_matches_jax_on_ties(k):
 
 # -- the builder ------------------------------------------------------------------
 
+LATTICE = dict(room_size=6, num_rows=3, num_cols=3)
+# 2x3 rooms of 4: two free cells a room at most (one in the agent's), so 18
+# objects fill rooms and draws come back not ok
+SMALL_LATTICE = dict(room_size=4, num_rows=2, num_cols=3)
+
+
 class JRooms(JRoomGridEnv):
-    def __init__(self):
-        super().__init__(room_size=6, num_rows=3, num_cols=3)
+    def __init__(self, **lattice):
+        super().__init__(**(lattice or LATTICE))
 
 
 class Rooms(RoomGridEnv):
-    def __init__(self):
-        super().__init__(room_size=6, num_rows=3, num_cols=3)
+    def __init__(self, **lattice):
+        super().__init__(**(lattice or LATTICE))
 
 
 def _jax_split(key, n):
@@ -211,9 +217,45 @@ def case_distractors_sequential(env, split, key, x, p):
     return b, (a1, a2), (q1, q2)
 
 
+def case_distractors_sequential_full(env, split, key, x, p):
+    """all_unique with 18 objects on the small lattice, from the agent in
+    room (1, 1): rooms fill, so later draws are not ok and set no combo."""
+    k = split(key, 3)
+    b = env.init_rooms(k[0], p)
+    b = env.place_agent_in_room(b, k[1], p, 1, 1)
+    return env.add_distractors(b, k[2], p, num_distractors=18)
+
+
+case_distractors_sequential_full.lattice = SMALL_LATTICE
+
+
+def case_distractors_sequential_fixed(env, split, key, x, p):
+    """One room coordinate fixed, the other drawn per object: the column
+    as a Python int, then the row per env."""
+    k = split(key, 3)
+    b = env.init_rooms(k[0], p)
+    b, a1, q1 = env.add_distractors(b, k[1], p, i=1, num_distractors=6)
+    b, a2, q2 = env.add_distractors(b, k[2], p, j=x["j"], num_distractors=5,
+                                    all_unique=False)
+    return b, (a1, a2), (q1, q2)
+
+
+def case_distractors_sequential_override(env, split, key, x, p):
+    """color_override and enabled per env, with and without uniqueness."""
+    k = split(key, 3)
+    b = env.init_rooms(k[0], p)
+    b, a1, q1 = env.add_distractors(b, k[1], p, num_distractors=6,
+                                    color_override=x["color9"], enabled=x["on"])
+    b, a2, q2 = env.add_distractors(b, k[2], p, num_distractors=4, all_unique=False,
+                                    color_override=x["color9"], enabled=x["on"])
+    return b, (a1, a2), (q1, q2)
+
+
 CASES = [case_init_remove_place, case_add_door, case_connect_all,
          case_connect_all_exclude, case_objects, case_distractors_oneshot_unique,
-         case_distractors_oneshot_repeats, case_distractors_sequential]
+         case_distractors_oneshot_repeats, case_distractors_sequential,
+         case_distractors_sequential_full, case_distractors_sequential_fixed,
+         case_distractors_sequential_override]
 
 
 def _inputs(seed: int) -> dict:
@@ -249,7 +291,8 @@ def _assert_tree_equal(got, want, where: str) -> None:
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__[5:])
 def test_builder_matches_jax(case):
-    jenv, env = JRooms(), Rooms()
+    lattice = getattr(case, "lattice", LATTICE)
+    jenv, env = JRooms(**lattice), Rooms(**lattice)
     jp, p = jenv.default_params, env.default_params
     seed = CASES.index(case)
     jkeys, keys = _keys(B, seed)
@@ -258,3 +301,6 @@ def test_builder_matches_jax(case):
     want = program.lower(jkeys, x).compile(INTEGER_ONLY)(jkeys, x)
     got = case(env, _port_split, keys, {k: torch.from_numpy(v) for k, v in x.items()}, p)
     _assert_tree_equal(got, want, case.__name__)
+    if case is case_distractors_sequential_full:
+        ok = got[0]["obj_mask"].sum(dim=1)  # one combo an object placed
+        assert (ok < 18).any() and (ok > 0).all()

@@ -150,12 +150,13 @@ def test_a_device_counter_is_summed_only_when_read(monkeypatch):
 
 
 def test_report_carries_the_kernel_launch_counts():
-    from minigrid_tpu_torch.ops import fused_step, obs_gather, threefry
+    from minigrid_tpu_torch.ops import distractors, fused_step, obs_gather, threefry
 
     counters = trace.report()["counters"]
     assert counters["obs_gather.launches"] == obs_gather.LAUNCHES
     assert counters["fused_step.launches"] == fused_step.LAUNCHES
     assert counters["threefry.launches"] == threefry.LAUNCHES
+    assert counters["distractors.launches"] == distractors.LAUNCHES
 
 
 # -- the layers ------------------------------------------------------------------------
