@@ -210,6 +210,8 @@ import time
 
 import torch
 
+from minigrid_tpu_torch.utils import trace
+
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
 NUM_ENVS = 4096
 POOL_REFILL = 64
@@ -615,17 +617,17 @@ def threefry_cases() -> list:
     return cases
 
 
-def check_threefry_kernel(dev, threefry) -> int:
+def check_threefry_kernel(dev) -> int:
     """Phase 3: every case of :func:`threefry_cases` on the card against the
     plain formula on the CPU, bitwise, with the launches each should make;
     the flipped-bit self-check on the widest word output.  Returns the largest
     |kernel - plain| (0 when bitwise equal)."""
     worst, widest = 0, None
     for what, keys, draw, launches in threefry_cases():
-        before = threefry.LAUNCHES
+        before = trace.launches("threefry")
         got = draw(keys.to(dev))
         torch.cuda.synchronize()
-        made = threefry.LAUNCHES - before
+        made = trace.launches("threefry") - before
         want = draw(keys)
         got = got.cpu()
         bad = mismatches(got, want)
@@ -641,7 +643,7 @@ def check_threefry_kernel(dev, threefry) -> int:
     return worst
 
 
-def check_goto_hashes(dev, threefry, distractors) -> dict:
+def check_goto_hashes(dev) -> dict:
     """The main path's hashes: one ``VectorEnv.step`` of GoTo at B=4096
     (pooled, its 16-level best-effort refill) adds exactly
     GOTO_HASHES_PER_STEP threefry launches and
@@ -653,18 +655,18 @@ def check_goto_hashes(dev, threefry, distractors) -> dict:
     venv = minigrid_tpu_torch.make_vec(GOTO, NUM_ENVS, device=dev)
     if venv.pool_refill != 16:
         raise AssertionError(f"{GOTO}: pool_refill {venv.pool_refill}, the count assumes 16")
-    before = threefry.LAUNCHES, distractors.LAUNCHES
+    before = kernel_counts()
     _, state = venv.reset(rng.PRNGKey(4, dev))
     torch.cuda.synchronize()
-    reset = threefry.LAUNCHES - before[0], distractors.LAUNCHES - before[1]
+    reset = kernel_counts(before)
     per_step = []
     for k in rng.split(rng.PRNGKey(5, dev), 3):
         action = rng.randint(k, (NUM_ENVS,), 0, venv.env.num_actions)
         torch.cuda.synchronize()
-        before = threefry.LAUNCHES, distractors.LAUNCHES
+        before = kernel_counts()
         _, state, *_ = venv.step(state, action)
         torch.cuda.synchronize()
-        per_step.append((threefry.LAUNCHES - before[0], distractors.LAUNCHES - before[1]))
+        per_step.append(kernel_counts(before))
     want = (GOTO_HASHES_PER_STEP, GOTO_DISTRACTOR_LAUNCHES_PER_STEP)
     if per_step != [want] * 3:
         raise AssertionError(f"{GOTO} B={NUM_ENVS}: (threefry, distractors) launches a "
@@ -673,6 +675,11 @@ def check_goto_hashes(dev, threefry, distractors) -> dict:
         f"at reset, {per_step} a step")
     return {"reset": reset[0], "per_step": [t for t, _ in per_step],
             "distractors_reset": reset[1], "distractors_per_step": [d for _, d in per_step]}
+
+
+def kernel_counts(since: tuple = (0, 0)) -> tuple[int, int]:
+    """(threefry, distractors) launches since the counts ``since``."""
+    return (trace.launches("threefry") - since[0], trace.launches("distractors") - since[1])
 
 
 def _builder_on(b: dict, dev) -> dict:
@@ -733,7 +740,7 @@ def _distractor_outputs(out) -> list:
     return [b["grid"], b["obj_mask"], added, positions]
 
 
-def check_distractors_kernel(dev, distractors) -> int:
+def check_distractors_kernel(dev) -> int:
     """Phase 3: every case of :func:`distractor_cases` through
     ``add_distractors`` on the card (one launch of the kernel each) against
     the plain loop on the CPU, bitwise: grid, combo mask, added pairs,
@@ -743,11 +750,11 @@ def check_distractors_kernel(dev, distractors) -> int:
     worst, widest = 0, None
     for what, env, b, keys, kwargs in distractor_cases():
         p = env.default_params
-        before = distractors.LAUNCHES
+        before = trace.launches("distractors")
         got = env.add_distractors(_builder_on(b, dev), keys.to(dev), p, **{
             k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()})
         torch.cuda.synchronize()
-        made = distractors.LAUNCHES - before
+        made = trace.launches("distractors") - before
         want = env.add_distractors(b, keys, p, **kwargs)
         if made != 1:
             raise AssertionError(f"distractors {what}: {made} launches, expected 1")
@@ -770,7 +777,7 @@ def check_distractors_kernel(dev, distractors) -> int:
     return worst
 
 
-def check_distractor_levels(dev, distractors) -> dict:
+def check_distractor_levels(dev) -> dict:
     """Phase 4: every sequential ``add_distractors`` call of a B=4096 GoTo
     and BossLevel reset and of their 16-level refills (three steps each),
     on the card through the kernel, held bitwise against the plain loop on
@@ -784,9 +791,9 @@ def check_distractor_levels(dev, distractors) -> dict:
     orig = RoomGridEnv.add_distractors
 
     def recorded(self, b, keys, params, *args, **kwargs):
-        before = distractors.LAUNCHES
+        before = trace.launches("distractors")
         out = orig(self, b, keys, params, *args, **kwargs)
-        if distractors.LAUNCHES != before:
+        if trace.launches("distractors") != before:
             calls.append((self, {k: v.cpu() for k, v in b.items()}, keys.cpu(), params,
                           args, {k: v.cpu() if isinstance(v, torch.Tensor) else v
                                  for k, v in kwargs.items()},
@@ -970,15 +977,13 @@ def drive_main_path(dev, counters: dict) -> dict:
     def keep(obs, reward, term, trunc):
         last.update(obs=obs, reward=reward, term=term, trunc=trunc)
 
-    torch.cuda.synchronize()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     acc, state = bench.run(venv, rng.PRNGKey(0, dev), MAIN_STEPS, REFILL_PERIOD,
                            on_step=keep)
     acc = float(acc)
     seconds = time.perf_counter() - t0
-    launches = {name: module.LAUNCHES for name, module in counters.items()}
+    launches = read_counts(counters)
 
     image = last["obs"]["image"]
     if image.shape != (NUM_ENVS, VIEW, VIEW, 3) or image.dtype != torch.uint8:
@@ -1081,14 +1086,12 @@ def drive_fused_path(dev, counters: dict) -> dict:
         ended.logical_or_(term | trunc)
         last.update(obs=obs, reward=reward)
 
-    torch.cuda.synchronize()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     acc, fs = bench.run_fused(fv, rng.PRNGKey(4, dev), actions, on_step=keep)
     acc = float(acc)
     seconds = time.perf_counter() - t0
-    launches = {name: module.LAUNCHES for name, module in counters.items()}
+    launches = read_counts(counters)
 
     if launches["fused_step"] != MAIN_STEPS or launches["obs_gather"] != 1:
         raise AssertionError(f"fused path launches {launches}: expected "
@@ -1175,9 +1178,7 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
     ends = torch.zeros((), dtype=torch.int64, device=dev)
     r_lo = torch.full((), float("inf"), device=dev)
     r_hi = torch.full((), -float("inf"), device=dev)
-    torch.cuda.synchronize()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     obs, state = venv.reset(rng.PRNGKey(seed + 1, dev))
     for a in actions:
@@ -1187,7 +1188,7 @@ def zoo_walk(dev, counters: dict, env_id: str, seed: int, steps: int = ZOO_STEPS
         r_hi = torch.maximum(r_hi, reward.max())
     ends, r_lo, r_hi = int(ends), float(r_lo), float(r_hi)
     seconds = time.perf_counter() - t0
-    launches = {name: module.LAUNCHES for name, module in counters.items()}
+    launches = read_counts(counters)
     if launches != {"obs_gather": steps + 1, "fused_step": 0}:
         raise AssertionError(f"{env_id}: launches {launches}, expected "
                              f"{steps + 1} obs_gather (one per observation)")
@@ -1354,9 +1355,7 @@ def drive_zoo(dev, counters: dict, obs_gather, card: str) -> dict:
 
     # rollout with bulk refills, pooled; short episodes, so the ring serves
     env = minigrid_tpu_torch.make(MULTIROOM, max_steps=ZOO_SHORT_EPISODE)
-    torch.cuda.synchronize()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     st, traj = minigrid_tpu_torch.rollout(env, None, rng.PRNGKey(9, dev), NUM_ENVS,
                                           ZOO_ROLLOUT_STEPS, refill_period=8,
@@ -1364,12 +1363,13 @@ def drive_zoo(dev, counters: dict, obs_gather, card: str) -> dict:
     n_fresh, n_stale = int(st.n_fresh), int(st.n_stale)
     seconds = time.perf_counter() - t0
     ends = int((traj["terminated"] | traj["truncated"]).sum())
+    gathers = read_counts(counters)["obs_gather"]
     if (traj["action"].shape != (ZOO_ROLLOUT_STEPS, NUM_ENVS)
-            or obs_gather.LAUNCHES != ZOO_ROLLOUT_STEPS + 1
+            or gathers != ZOO_ROLLOUT_STEPS + 1
             or not bool(torch.isfinite(traj["reward"]).all())
             or n_fresh + n_stale != ends or n_fresh == 0):
         raise AssertionError(f"rollout: {tuple(traj['action'].shape)}, "
-                             f"{obs_gather.LAUNCHES} gathers, {ends} ends, "
+                             f"{gathers} gathers, {ends} ends, "
                              f"fresh {n_fresh} stale {n_stale}")
     log(f"  rollout({MULTIROOM}, max_steps {ZOO_SHORT_EPISODE}, B={NUM_ENVS}, "
         f"{ZOO_ROLLOUT_STEPS} steps, refill_period=8, pooled at the family's window): "
@@ -1713,9 +1713,7 @@ def wrapped_walk(dev, counters: dict, venv, seed: int, gathers: int) -> dict:
     ends = torch.zeros((), dtype=torch.int64, device=dev)
     r_lo = torch.full((), float("inf"), device=dev)
     r_hi = torch.full((), -float("inf"), device=dev)
-    torch.cuda.synchronize()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     obs, state = venv.reset(rng.PRNGKey(seed + 1, dev))
     for a in actions:
@@ -1725,7 +1723,7 @@ def wrapped_walk(dev, counters: dict, venv, seed: int, gathers: int) -> dict:
         r_hi = torch.maximum(r_hi, reward.max())
     ends, r_lo, r_hi = int(ends), float(r_lo), float(r_hi)
     seconds = time.perf_counter() - t0
-    launches = {name: module.LAUNCHES for name, module in counters.items()}
+    launches = read_counts(counters)
     want = {"obs_gather": (WRAPPED_STEPS + 1) * gathers, "fused_step": 0}
     if launches != want:
         raise AssertionError(f"{type(venv.env).__name__}: launches {launches}, "
@@ -1836,6 +1834,7 @@ def drive_wrappers(dev, counters: dict, card: str) -> dict:
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
     from minigrid_tpu_torch.core.state import map_fields
+    from minigrid_tpu_torch.ops import obs_gather
     from minigrid_tpu_torch.ops import render as R
     from minigrid_tpu_torch.parallel.vector import VectorEnv
     from minigrid_tpu_torch.tools import battery, bench, benchmark
@@ -1889,7 +1888,6 @@ def drive_wrappers(dev, counters: dict, card: str) -> dict:
             f"[{walk['reward'][0]}, {walk['reward'][1]}]; B={WRAPPED_CPU_ENVS} card == "
             f"CPU ({ends64} ends; floats {ulp} ulp apart); {out['seconds'][name]:.1f} s")
     # the gather at the wrapper's view sizes, on the 16x16 walks' states
-    obs_gather = counters["obs_gather"]
     out["gather"] = {}
     for name, v in (("view 3", 3), ("view 11", 11)):
         st = walks[name]["state"]
@@ -2138,13 +2136,15 @@ def finite_metrics(metrics: dict, what: str) -> dict:
 
 
 def zero_counts(counters: dict) -> None:
+    """Count the launches of ``counters``' kernels from here (after a sync)."""
     torch.cuda.synchronize()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    for name in counters:
+        counters[name] = trace.launches(name)
 
 
 def read_counts(counters: dict) -> dict:
-    return {name: module.LAUNCHES for name, module in counters.items()}
+    """The launches of each of ``counters``' kernels since :func:`zero_counts`."""
+    return {name: trace.launches(name) - start for name, start in counters.items()}
 
 
 def drive_learner(dev, counters: dict, card: str) -> dict:
@@ -2373,7 +2373,7 @@ def _rank_start(device: str) -> torch.device:
         plain = obs_gather.gather_view_plain
 
         def counted(*args):
-            obs_gather.LAUNCHES += 1
+            trace.launched("obs_gather")
             return plain(*args)
 
         obs_gather.gather_view = counted
@@ -2446,7 +2446,6 @@ def _rank_env_walk(device: str, sz: dict) -> dict:
 
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
-    from minigrid_tpu_torch.ops import obs_gather
     from minigrid_tpu_torch.parallel.sharding import ShardedVectorEnv
     from minigrid_tpu_torch.utils.checkpoint import state_hash
 
@@ -2455,12 +2454,12 @@ def _rank_env_walk(device: str, sz: dict) -> dict:
     venv = ShardedVectorEnv(env, sz["num_envs"], device=dev, reset_strategy="pooled",
                             pool_refill=sz["pool_refill"])
     _sync(dev)
-    obs_gather.LAUNCHES = 0
+    before = trace.launches("obs_gather")
     t0 = time.perf_counter()
     digests, state = mesh_walk(venv, rng.PRNGKey(11, dev), sz["steps"], sz["period"])
     _sync(dev)
     seconds = time.perf_counter() - t0
-    launches = obs_gather.LAUNCHES
+    launches = trace.launches("obs_gather") - before
     zero = torch.zeros_like(state.n_fresh)
     return {"rank": dist.get_rank(), "shard": venv.shard, "digests": digests,
             "state_hash": state_hash(state.replace(n_fresh=zero, n_stale=zero)),
@@ -2472,16 +2471,15 @@ def _rank_rollout(device: str, sz: dict) -> dict:
     """Phase 4h (b) on one rank: ``sharded_rollout``'s totals and launches."""
     import minigrid_tpu_torch
     from minigrid_tpu_torch.core import rng
-    from minigrid_tpu_torch.ops import obs_gather
     from minigrid_tpu_torch.parallel.sharding import sharded_rollout
 
     dev = _rank_start(device)
     env = minigrid_tpu_torch.make(ENV_ID, max_steps=sz["episode"])
     _sync(dev)
-    obs_gather.LAUNCHES = 0
+    before = trace.launches("obs_gather")
     totals = sharded_rollout(env, None, rng.PRNGKey(12, dev), sz["num_envs"], sz["steps"],
                              device=dev)
-    return {"totals": totals, "launches": obs_gather.LAUNCHES}
+    return {"totals": totals, "launches": trace.launches("obs_gather") - before}
 
 
 def _timed_all_reduce(dev, seconds: list):
@@ -2534,7 +2532,6 @@ def _rank_ppo(device: str, sz: dict, watch_syncs: bool) -> dict:
     import minigrid_tpu_torch
     from minigrid_tpu_torch import rl
     from minigrid_tpu_torch.core import rng
-    from minigrid_tpu_torch.ops import obs_gather
     from minigrid_tpu_torch.parallel.multihost import pod_mesh
     from minigrid_tpu_torch.rl import ppo
 
@@ -2549,7 +2546,7 @@ def _rank_ppo(device: str, sz: dict, watch_syncs: bool) -> dict:
     rows, first_actions, syncs = [], None, None
     for u in range(updates):
         _sync(dev)
-        obs_gather.LAUNCHES = 0
+        before = trace.launches("obs_gather")
         watch = watch_syncs and u == 1 and dev.type == "cuda"
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -2565,7 +2562,7 @@ def _rank_ppo(device: str, sz: dict, watch_syncs: bool) -> dict:
                      if "called a synchronizing" in str(w.message)]
         if u == 0:
             first_actions = traj["action"]
-        rows.append({**seconds, "launches": obs_gather.LAUNCHES,
+        rows.append({**seconds, "launches": trace.launches("obs_gather") - before,
                      "metrics": {k: float(v) for k, v in metrics.items()}})
     reduce_s = [0.0]
     inner, ppo.reduce_gradients = _timed_all_reduce(dev, reduce_s)
@@ -3712,7 +3709,7 @@ def main() -> int:
     log(f"  {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
-    from minigrid_tpu_torch.ops import _build, distractors, fused_step, obs_gather, threefry
+    from minigrid_tpu_torch.ops import _build, fused_step, obs_gather, threefry
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -3723,7 +3720,7 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  [{name}] {line.strip()}")
-    counters = {"obs_gather": obs_gather, "fused_step": fused_step}
+    counters = {"obs_gather": 0, "fused_step": 0}  # each kernel's count when last zeroed
 
     log("phase 3: kernels against their plain versions on the card")
     err = check_gather_sweep(dev, obs_gather)
@@ -3731,13 +3728,13 @@ def main() -> int:
     err = max(err, err_dk)
     fused_err, fused_batches = check_fused_kernel(dev, fused_step)
     _, fused_args, fused_spec = fused_batches[0]
-    threefry_err = check_threefry_kernel(dev, threefry)
-    distractors_err = check_distractors_kernel(dev, distractors)
+    threefry_err = check_threefry_kernel(dev)
+    distractors_err = check_distractors_kernel(dev)
 
     log("phase 4: the main paths")
     main = drive_main_path(dev, counters)
-    goto_hashes = check_goto_hashes(dev, threefry, distractors)
-    check_distractor_levels(dev, distractors)
+    goto_hashes = check_goto_hashes(dev)
+    check_distractor_levels(dev)
     card_matches_cpu(dev)
     fused_main = drive_fused_path(dev, counters)
     fused_card_matches_cpu(dev)

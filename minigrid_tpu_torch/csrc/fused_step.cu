@@ -17,7 +17,8 @@
 //      unseen cells zeroed, written as the uint8 [V, V, 3] image.
 //
 // Random numbers: the step key k splits into (k_next, sub) = (h(k, 0, 0),
-// h(k, 0, 1)), h the threefry2x32 hash of a counter pair; the draw
+// h(k, 0, 1)), h the threefry2x32 hash of a counter pair (threefry.cuh,
+// shared with threefry.cu and distractors.cu); the draw
 // randint(sub, (N, 8), 0, 2^24) has a zero multiplier at that span, so draw
 // j of env n is (h0 ^ h1) & 0xFFFFFF of h(h(sub, 0, 1), 0, n*8 + j).  The
 // thread of a finished env computes the draws it reads (columns 0-4), and
@@ -84,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
 #include "view_tile.cuh"
 
 namespace {
@@ -109,38 +111,11 @@ constexpr int kMaxView = 31;
 constexpr int kAgentWidth = 8;
 constexpr int kTile = 16;  // envs a block owns
 constexpr int kThreads = 128;
-constexpr uint32_t kParity = 0x1BD11BDA;
 static_assert(kTile % 16 == 0 && kTile <= 32,
               "16-byte aligned image spans; one bit a tile env in the done mask");
 
 __device__ __forceinline__ int pack(int t, int c, int s) {
   return t | (c << 8) | (s << 16);
-}
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-// Threefry-2x32, 20 rounds, of the counter pair (c0, c1) under (k0, k1):
-// minigrid_tpu_torch/core/rng.py::threefry2x32.
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1, uint32_t c0,
-                                         uint32_t c1, uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ kParity};
-  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  o0 = x0;
-  o1 = x1;
 }
 
 struct Level {  // a finished env's new layout and start
@@ -251,8 +226,8 @@ __device__ __forceinline__ Tile carve(void* base, int WH, int V) {
 
 __device__ __forceinline__ void write_key(const Args& a) {
   uint32_t k0, k1;
-  threefry(static_cast<uint32_t>(a.key[0]), static_cast<uint32_t>(a.key[1]), 0u, 0u,
-           k0, k1);
+  threefry_hash::hash(static_cast<uint32_t>(a.key[0]), static_cast<uint32_t>(a.key[1]), 0u,
+                      k0, k1);
   a.key_out[0] = k0;
   a.key_out[1] = k1;
   a.t_out[0] = a.t_in[0] + 1;
@@ -329,14 +304,14 @@ __device__ __forceinline__ void step_env(const Args& a, const Tile& s, int n0, i
     Level lv{-1, -1, -1, -1, a.sx, a.sy, a.sdir};
     if (a.gen == kGenDoorKey || a.gen == kGenEmptyRandom) {
       uint32_t s0, s1, l0, l1;
-      threefry(static_cast<uint32_t>(a.key[0]), static_cast<uint32_t>(a.key[1]), 0u, 1u,
-               s0, s1);                  // sub = split(key)[1]
-      threefry(s0, s1, 0u, 1u, l0, l1);  // split(sub)[1]: randint's low word
+      threefry_hash::hash(static_cast<uint32_t>(a.key[0]), static_cast<uint32_t>(a.key[1]),
+                          1u, s0, s1);  // sub = split(key)[1]
+      threefry_hash::hash(s0, s1, 1u, l0, l1);  // split(sub)[1]: randint's low word
       int r[5];
 #pragma unroll
       for (int j = 0; j < 5; ++j) {
         uint32_t h0, h1;
-        threefry(l0, l1, 0u, static_cast<uint32_t>(n) * 8u + j, h0, h1);
+        threefry_hash::hash(l0, l1, static_cast<uint32_t>(n) * 8u + j, h0, h1);
         r[j] = static_cast<int>((h0 ^ h1) & 0xFFFFFFu);
       }
       if (a.gen == kGenDoorKey) {

@@ -1,6 +1,7 @@
 // The Threefry-2x32 hash on the device, shared by the kernels that draw
-// (threefry.cu, distractors.cu): minigrid_tpu_torch/core/rng.py::threefry2x32
-// of the counter pair (0, c) under one key, 20 rounds in registers.
+// (threefry.cu, distractors.cu, fused_step.cu):
+// minigrid_tpu_torch/core/rng.py::threefry2x32 of the counter pair (0, c)
+// under one key, 20 rounds in registers.
 
 #pragma once
 

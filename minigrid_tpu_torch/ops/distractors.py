@@ -14,14 +14,13 @@ device, then launches the kernel for a CUDA tensor and raises for any other
 device: the CPU path is ``add_distractors``' loop, which never calls in here.
 A room coordinate, ``enabled`` and ``color_override`` are Python values or
 tensors of one value per env, read through a stride (0 for a single value).
-``LAUNCHES`` counts the launches; each also counts
+``trace.launches("distractors")`` counts the launches; each also counts
 ``roomgrid.distractors_kernel`` in the program's trace.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import numbers
 
 import numpy as np
@@ -29,15 +28,12 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.sampling import SORTED_COLOR_IDS
-from minigrid_tpu_torch.ops._build import check_launch
-from minigrid_tpu_torch.utils import trace
+from minigrid_tpu_torch.ops._build import Kernel, check_launch
 
 WARPS = 4  # envs a block (csrc/distractors.cu kWarps)
 NUM_COMBOS = 30  # (kind, color) pairs of obj_mask
 KIND_IDS = tuple(C.OBJECT_TO_IDX[k] for k in ("key", "ball", "box"))
 ALL_UNIQUE, DRAW_I, DRAW_J, OVERRIDE = 1, 2, 4, 8  # csrc/distractors.cu's flags
-
-LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
@@ -87,26 +83,18 @@ def _per_env(v, name: str, n: int, dtype: torch.dtype):
     return v.reshape(-1), int(v.numel() != 1), 0
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry ``distractors`` of a library built from
-    ``csrc/distractors.cu``, with its argument types; raises if the
-    library's ``Args`` is not :class:`Args`."""
-    size = lib.distractors_args_size
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(Args):
-        raise RuntimeError(f"csrc/distractors.cu's Args is {size()} bytes, the wrapper's "
-                           f"{ctypes.sizeof(Args)}")
-    fn = lib.distractors
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+class _Kernel(Kernel):
+    def bind(self, lib: ctypes.CDLL):
+        """As :meth:`Kernel.bind`; raises if the library's ``Args`` is not
+        :class:`Args`."""
+        size = lib.distractors_args_size()  # an int, ctypes' default return type
+        if size != ctypes.sizeof(Args):
+            raise RuntimeError(f"csrc/distractors.cu's Args is {size} bytes, the wrapper's "
+                               f"{ctypes.sizeof(Args)}")
+        return super().bind(lib)
 
 
-@functools.cache
-def _kernel():
-    from minigrid_tpu_torch.ops import _build
-
-    return bind(_build.load("distractors"))
+KERNEL = _Kernel("distractors", [ctypes.c_void_p], counter="roomgrid.distractors_kernel")
 
 
 def place(b: dict, keys: torch.Tensor, lattice: tuple[int, int, int], i, j, num: int,
@@ -149,8 +137,7 @@ def place(b: dict, keys: torch.Tensor, lattice: tuple[int, int, int], i, j, num:
                  f"a {w}x{h} grid")
 
     dev = keys.device
-    if dev.type != "cuda":
-        raise ValueError(f"no distractors kernel for device {dev}")
+    KERNEL.check_device(dev)
     for t, name in ((grid, "grid"), (obj_mask, "obj_mask"), (agent_pos, "agent_pos")):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the keys on {dev}")
@@ -182,19 +169,5 @@ def place(b: dict, keys: torch.Tensor, lattice: tuple[int, int, int], i, j, num:
         *(x for _, stride, value in forms for x in (stride, value)), flags,
         (_I * len(SORTED_COLOR_IDS))(*(int(c) for c in SORTED_COLOR_IDS)),
         (_I * len(KIND_IDS))(*KIND_IDS))
-    if dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            _run(args, dev)
-    else:
-        _run(args, dev)
+    KERNEL.launch(dev, ctypes.byref(args))
     return b, added, positions
-
-
-def _run(args: Args, dev: torch.device) -> None:
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    err = _kernel()(ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"distractors kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    trace.count("roomgrid.distractors_kernel", 1)

@@ -33,13 +33,12 @@ here compute exactly that.  The step count and truncation read the static
 
 :func:`fused_step` takes the plain version for tensors on the CPU and the
 kernel for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts the kernel launches.
+``trace.launches("fused_step")`` counts the kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,7 +50,7 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.obs import process_vis
 from minigrid_tpu_torch.core.state import EnvParams, base_state, resolve_device
 from minigrid_tpu_torch.core.step import _fma_f32, dir_to_vec
-from minigrid_tpu_torch.ops._build import check_launch, check_tensor
+from minigrid_tpu_torch.ops._build import Kernel, check_launch, check_tensor
 from minigrid_tpu_torch.ops.obs_gather import gather_view_plain
 from minigrid_tpu_torch.utils import trace
 
@@ -77,7 +76,8 @@ _GREY = C.COLOR_TO_IDX["grey"]
 _GREEN = C.COLOR_TO_IDX["green"]
 _YELLOW = C.COLOR_TO_IDX["yellow"]
 
-LAUNCHES = 0
+KERNEL = Kernel("fused_step", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                + [ctypes.c_int] * 5)
 
 
 @dataclass(frozen=True)
@@ -280,23 +280,6 @@ def fused_step_plain(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tens
 
 # -- kernel -----------------------------------------------------------------------
 
-def bind(lib: ctypes.CDLL):
-    """The C entry ``fused_step`` of a library built from
-    ``csrc/fused_step.cu``, with its argument types."""
-    fn = lib.fused_step
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _kernel():
-    from minigrid_tpu_torch.ops import _build
-
-    return bind(_build.load("fused_step"))
-
-
 def fused_step(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tensor,
                key: torch.Tensor, t: torch.Tensor, spec: FusedSpec):
     """One step of every env: grid int32[N, W, H], agent int32[N, 8], action
@@ -321,8 +304,7 @@ def fused_step(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tensor,
         check_tensor(arg, name, dtype, shape, dev)
     if dev.type == "cpu":
         return fused_step_plain(grid, agent, action, key, t, spec)
-    if dev.type != "cuda":
-        raise ValueError(f"no fused_step kernel for device {dev}")
+    KERNEL.check_device(dev)
     out = (torch.empty((n, w, h), dtype=torch.int32, device=dev),
            torch.empty((n, A_WIDTH), dtype=torch.int32, device=dev),
            torch.empty((n, v, v, 3), dtype=torch.uint8, device=dev),
@@ -331,17 +313,10 @@ def fused_step(grid: torch.Tensor, agent: torch.Tensor, action: torch.Tensor,
            torch.empty((n,), dtype=torch.bool, device=dev),
            torch.empty((2,), dtype=torch.int64, device=dev),
            torch.empty((), dtype=torch.int32, device=dev))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(grid.data_ptr(), agent.data_ptr(), action.data_ptr(),
-                        key.data_ptr(), t.data_ptr(), *(o.data_ptr() for o in out),
-                        n, w, h, v, spec.max_steps, -reward_factor(spec.max_steps),
-                        int(spec.see_through_walls), spec.generator,
-                        spec.start_x, spec.start_y, spec.start_dir, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    KERNEL.launch(dev, grid.data_ptr(), agent.data_ptr(), action.data_ptr(), key.data_ptr(),
+                  t.data_ptr(), *(o.data_ptr() for o in out), n, w, h, v, spec.max_steps,
+                  -reward_factor(spec.max_steps), int(spec.see_through_walls), spec.generator,
+                  spec.start_x, spec.start_y, spec.start_dir)
     return out
 
 

@@ -9,26 +9,25 @@ source for its bound on the card.
 
 :func:`gather_view` takes the plain version for a tensor on the CPU and the
 kernel for a CUDA tensor; on a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts the kernel launches, so that a run can show that its
-observations went through the kernel.
+``trace.launches("obs_gather")`` counts the kernel launches, so that a run can
+show that its observations went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.grid_ops import pack_word
 from minigrid_tpu_torch.core.obs import view_world_coords
-from minigrid_tpu_torch.ops._build import check_launch, check_tensor
+from minigrid_tpu_torch.ops._build import Kernel, check_launch, check_tensor
 
 WALL_PACKED = pack_word(C.WALL_TRIPLE)
 TILE = 32  # envs per block (csrc/obs_gather.cu kTile)
 
-LAUNCHES = 0
+KERNEL = Kernel("obs_gather", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
 
 
 def gather_view_plain(grid: torch.Tensor, agent_pos: torch.Tensor,
@@ -49,22 +48,6 @@ def gather_tile_bytes(width: int, height: int) -> int:
     return 4 * TILE * (width * height + 3)
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry ``obs_gather`` of a library built from
-    ``csrc/obs_gather.cu``, with its argument types."""
-    fn = lib.obs_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _kernel():
-    from minigrid_tpu_torch.ops import _build
-
-    return bind(_build.load("obs_gather"))
-
-
 def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
                 agent_dir: torch.Tensor, view_size: int) -> torch.Tensor:
     """Rotated egocentric window of every env, packed:
@@ -72,8 +55,7 @@ def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
     int32[B, V, V]."""
     if grid.device.type == "cpu":
         return gather_view_plain(grid, agent_pos, agent_dir, view_size)
-    if grid.device.type != "cuda":
-        raise ValueError(f"no obs_gather kernel for device {grid.device}")
+    KERNEL.check_device(grid.device)
     if grid.dim() != 3:
         raise ValueError(f"grid must be [B, W, H], got {tuple(grid.shape)}")
     b, w, h = grid.shape
@@ -87,12 +69,6 @@ def gather_view(grid: torch.Tensor, agent_pos: torch.Tensor,
     out = torch.empty((b, v, v), dtype=torch.int32, device=grid.device)
     if b == 0:
         return out
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream(grid.device).cuda_stream
-        err = _kernel()(grid.data_ptr(), agent_pos.data_ptr(),
-                        agent_dir.data_ptr(), out.data_ptr(), b, w, h, v, stream)
-    if err != 0:
-        raise RuntimeError(f"obs_gather kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    KERNEL.launch(grid.device, grid.data_ptr(), agent_pos.data_ptr(), agent_dir.data_ptr(),
+                  out.data_ptr(), b, w, h, v)
     return out

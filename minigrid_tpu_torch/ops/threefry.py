@@ -16,24 +16,23 @@ with one stride (two, for ``fold_in`` by a tensor).
 
 The wrapper checks dtypes and shapes before it looks at the device, then
 launches the kernel for a CUDA tensor and raises for any other device: the
-CPU path is ``core/rng.py``'s, which never calls in here.  ``LAUNCHES``
-counts the launches; each also counts ``rng.threefry`` in the program's
-trace.
+CPU path is ``core/rng.py``'s, which never calls in here.
+``trace.launches("threefry")`` counts the launches; each also counts
+``rng.threefry`` in the program's trace.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.ops._build import MAX_INDEX
-from minigrid_tpu_torch.utils import trace
+from minigrid_tpu_torch.ops._build import MAX_INDEX, Kernel
 
-LAUNCHES = 0
+KERNEL = Kernel("threefry", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                + [ctypes.c_uint, ctypes.c_int], counter="rng.threefry")
 
 
 class Layout(NamedTuple):
@@ -155,23 +154,6 @@ def fold_layout(keys: torch.Tensor, data: torch.Tensor) -> Layout:
                   0, False)
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry ``threefry`` of a library built from ``csrc/threefry.cu``,
-    with its argument types."""
-    fn = lib.threefry
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.c_int,
-                                                                   ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _kernel():
-    from minigrid_tpu_torch.ops import _build
-
-    return bind(_build.load("threefry"))
-
-
 def launch(lay: Layout) -> torch.Tensor:
     """Run one layout on its keys' device: a new int64 tensor of
     ``lay.out_shape``."""
@@ -182,31 +164,15 @@ def launch(lay: Layout) -> torch.Tensor:
         raise ValueError(f"a threefry draw of {lay.out_shape} overflows the kernel's "
                          "32-bit indices")
     dev = lay.keys.device
-    if dev.type != "cuda":
-        raise ValueError(f"no threefry kernel for device {dev}")
+    KERNEL.check_device(dev)
     if lay.data is not None and lay.data.device != dev:
         raise ValueError(f"fold_in data is on {lay.data.device}, the keys on {dev}")
     out = torch.empty(lay.out_shape, dtype=torch.int64, device=dev)
     if total == 0:
         return out
-    if dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return _run(lay, out)
-    return _run(lay, out)
-
-
-def _run(lay: Layout, out: torch.Tensor) -> torch.Tensor:
-    # the current stream's handle as an int: 0.2 us a call on an H100's
-    # host, against 8.3 us through torch.cuda.current_stream(...).cuda_stream
-    stream = torch._C._cuda_getCurrentRawStream(out.device.index)
-    err = _kernel()(lay.keys.data_ptr(), None if lay.data is None else lay.data.data_ptr(),
-                    out.data_ptr(), lay.n, lay.m, lay.ks_i, lay.ks_j, lay.kw, lay.ds_i,
-                    lay.ds_j, lay.base, int(lay.xor), stream)
-    if err != 0:
-        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    trace.count("rng.threefry", 1)
+    KERNEL.launch(dev, lay.keys.data_ptr(), None if lay.data is None else lay.data.data_ptr(),
+                  out.data_ptr(), lay.n, lay.m, lay.ks_i, lay.ks_j, lay.kw, lay.ds_i, lay.ds_j,
+                  lay.base, int(lay.xor))
     return out
 
 

@@ -38,6 +38,7 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.core.state import resolve_device
 from minigrid_tpu_torch.parallel.vector import VectorEnv
 from minigrid_tpu_torch.tools.benchmark import timed_rollout
+from minigrid_tpu_torch.utils import trace
 
 
 def gather_impl(device: torch.device) -> str:
@@ -67,10 +68,10 @@ def device_kernel_gate(env_id: str = "MiniGrid-DoorKey-8x8-v0",
         states = env.step_state(states, rng.randint(k, (num_envs,), 0, env.num_actions),
                                 params)[0]
     args = (states.grid, states.agent_pos, states.agent_dir, params.agent_view_size)
-    before = obs_gather.LAUNCHES
+    before = trace.launches("obs_gather")
     got = obs_gather.gather_view(*args)
     want = obs_gather.gather_view_plain(*args)
-    if obs_gather.LAUNCHES != before + 1:
+    if trace.launches("obs_gather") != before + 1:
         raise AssertionError("the obs_gather kernel did not launch; refusing to bench")
     bad = int((got != want).sum())
     if bad:

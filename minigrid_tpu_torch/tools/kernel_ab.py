@@ -6,9 +6,11 @@ Run from the repository root (it reuses ``chip_smoke.py``'s inputs, compare
 and timer).  ``DIR`` holds another version's ``fused_step.cu`` and
 ``obs_gather.cu`` (with their headers), for example the parent commit's
 ``minigrid_tpu_torch/csrc`` unpacked with ``git archive``; both versions
-must keep the C entries' signatures.  Each source is built with ``nvcc``
-(all at once, into ``minigrid_tpu_torch/_build/ab/``), held bitwise against
-the plain version, and timed in turns, baseline first and then current,
+must keep the C entries' signatures.  Each source is built as the port's
+kernels are (``_build.compile_all``, all at once, into
+``minigrid_tpu_torch/_build/ab/``), bound and launched through the
+wrapper's ``Kernel``, held bitwise against the plain version, and timed in
+turns, baseline first and then current,
 then in reverse order, with ``chip_smoke.gpu_time_ms``: ``fused_step`` on
 DoorKey-8x8 at B=4096 (no lane finishes), at B=4096 with ``max_steps`` 12
 (most lanes regenerate) and at B=32768; ``obs_gather`` on DoorKey-8x8
@@ -26,11 +28,9 @@ microseconds and the card (``nvidia-smi`` name and power limit).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import shutil
-import subprocess
 from pathlib import Path
 
 import torch
@@ -58,7 +58,7 @@ PHASES = {
     },
 }
 RETURN = {"fused_step": "  if (a.N > 0) return;\n", "obs_gather": "  if (a.B > 0) return;\n"}
-WRAPPERS = {"fused_step": F, "obs_gather": O}
+KERNELS = {"fused_step": F.KERNEL, "obs_gather": O.KERNEL}
 
 
 def variants(baseline: Path, phases: bool) -> dict:
@@ -88,30 +88,9 @@ def build(todo: dict) -> dict:
                 raise ValueError(f"{kernel}.cu has no single line {line!r}")
             text = text.replace(line, new)
         (d / f"{kernel}.cu").write_text(text)
-        so = d / f"{kernel}.so"
-        proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                                 str(d / f"{kernel}.cu")], stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[kernel, name] = (so, proc)
-    fns = {}
-    for (kernel, name), (so, proc) in jobs.items():
-        log, _ = proc.communicate(timeout=_build._BUILD_TIMEOUT_S)
-        if proc.returncode:
-            raise RuntimeError(f"{kernel} {name}: build failed\n{log}")
-        fns[kernel, name] = WRAPPERS[kernel].bind(ctypes.CDLL(str(so)))
-    return fns
-
-
-@contextlib.contextmanager
-def launching(kernel: str, fn):
-    """The wrapper of ``kernel`` launches the C entry ``fn`` meanwhile."""
-    module = WRAPPERS[kernel]
-    saved = module._kernel
-    module._kernel = lambda: fn
-    try:
-        yield
-    finally:
-        module._kernel = saved
+        jobs[kernel, name] = (d / f"{kernel}.cu", d / f"{kernel}.so")
+    _build.compile_all(jobs)
+    return {key: KERNELS[key[0]].bind(ctypes.CDLL(str(so))) for key, (_, so) in jobs.items()}
 
 
 def main(argv=None) -> None:
@@ -135,11 +114,11 @@ def main(argv=None) -> None:
     _, _, st = cs.doorkey_walk_states(dev, cs.NUM_ENVS)
     gather_args = (st.grid, st.agent_pos, st.agent_dir, cs.VIEW)
     for name in ("baseline", "current"):
-        with launching("fused_step", fns["fused_step", name]):
+        with F.KERNEL.substituted(fns["fused_step", name]):
             for where, (fargs, spec) in cases.items():
                 cs.compare_fused(F.fused_step(*fargs, spec), F.fused_step_plain(*fargs, spec),
                                  f"{name} {where}")
-        with launching("obs_gather", fns["obs_gather", name]):
+        with O.KERNEL.substituted(fns["obs_gather", name]):
             if cs.mismatches(O.gather_view(*gather_args), O.gather_view_plain(*gather_args)):
                 raise AssertionError(f"obs_gather {name} != plain")
     print("baseline and current: bitwise equal to the plain versions", flush=True)
@@ -147,7 +126,7 @@ def main(argv=None) -> None:
     us = {}
     for order in (1, -1):  # baseline, current, ..., then the reverse
         for (kernel, name), fn in list(fns.items())[::order]:
-            with launching(kernel, fn):
+            with KERNELS[kernel].substituted(fn):
                 if kernel == "fused_step":
                     for where, (fargs, spec) in cases.items():
                         ms = cs.gpu_time_ms(lambda: F.fused_step(*fargs, spec))

@@ -33,6 +33,7 @@ import torch
 
 from minigrid_tpu_torch.core.state import resolve_device
 from minigrid_tpu_torch.tools.battery import device_kernel_gate
+from minigrid_tpu_torch.utils import trace
 
 __all__ = ["device_kernel_gate", "run_smoke"]
 
@@ -94,9 +95,9 @@ def _check_gather_impls(device=None) -> None:
     if dev.type == "cuda":
         impls.append(("the obs_gather kernel", obs_gather.gather_view))
     for name, fn in impls:
-        before = obs_gather.LAUNCHES
+        before = trace.launches("obs_gather")
         got = fn(grids, pos, dirs, v).cpu().numpy()
-        if fn is obs_gather.gather_view and obs_gather.LAUNCHES != before + 1:
+        if fn is obs_gather.gather_view and trace.launches("obs_gather") != before + 1:
             raise AssertionError("the obs_gather kernel did not launch — refusing to bench")
         for d in range(4):
             rows = [i for i, c in enumerate(combos) if c[2] == d]

@@ -34,11 +34,11 @@ concatenation and a sum, two launches), which bounds what the counter holds.
 
 :func:`report` returns ``{"spans": {name: {"calls", "seconds",
 "self_seconds", "parents"}}, "counters": {name: int}}``; the counters include
-the kernel wrappers' own running launch counts, ``obs_gather.LAUNCHES``,
-``fused_step.LAUNCHES``, ``threefry.LAUNCHES`` and ``distractors.LAUNCHES``, as
-``obs_gather.launches``, ``fused_step.launches``, ``threefry.launches`` and
-``distractors.launches`` (:func:`reset` leaves those four alone).  The record
-is one per process, and spans nest as one thread opens them.
+``<name>.launches`` for every kernel (``ops/_build.py::Kernel``): its running
+launch count, :func:`launches`, which is kept whether tracing is on or off,
+from 0 when the kernel's wrapper is imported, and which :func:`reset` leaves
+alone.  The record is one per process, and spans nest as one thread opens
+them.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ _spans: dict[str, "_Stat"] = {}
 _counts: dict[str, int] = {}
 _pending: dict[str, list[torch.Tensor]] = {}
 _stack: list["_Span"] = []  # the spans open now, innermost last
+_launches: dict[str, int] = {}  # the kernels' running launch counts, never reset
 
 
 class _Stat:
@@ -125,6 +126,17 @@ def count(name: str, value) -> None:
         _counts[name] = _counts.get(name, 0) + int(value)
 
 
+def launched(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of the kernel ``name`` to its running count, tracing
+    or not (``n`` 0 lists the kernel from 0)."""
+    _launches[name] = _launches.get(name, 0) + n
+
+
+def launches(name: str) -> int:
+    """The running launch count of the kernel ``name``."""
+    return _launches[name]
+
+
 def _fold(tensors: list[torch.Tensor]) -> torch.Tensor:
     """The tensors (of one device) summed into one, on their device."""
     return torch.cat([t.reshape(-1) for t in tensors]).sum()
@@ -153,17 +165,12 @@ def report() -> dict:
     """What was recorded since the last :func:`reset`: ``spans`` (per name
     ``calls``, ``seconds``, ``self_seconds``, ``parents``) and ``counters``
     (the device tensors summed now, one host read per counter)."""
-    from minigrid_tpu_torch.ops import distractors, fused_step, obs_gather, threefry
-
     counters = dict(_counts)
     for name, pending in _pending.items():
         total = _fold(pending)
         _pending[name] = [total]
         counters[name] = counters.get(name, 0) + int(total)
-    counters["obs_gather.launches"] = obs_gather.LAUNCHES
-    counters["fused_step.launches"] = fused_step.LAUNCHES
-    counters["threefry.launches"] = threefry.LAUNCHES
-    counters["distractors.launches"] = distractors.LAUNCHES
+    counters.update((f"{name}.launches", n) for name, n in _launches.items())
     spans = {name: {"calls": s.calls, "seconds": s.seconds,
                     "self_seconds": s.self_seconds, "parents": sorted(s.parents)}
              for name, s in _spans.items()}

@@ -1,4 +1,5 @@
-"""The port's kernel wrappers, their build, and the port's import hygiene.
+"""The port's kernel wrappers, their build and launch seam, and the port's
+import hygiene.
 
 The CUDA kernels themselves run only on a card: the tests marked ``gpu`` hold
 them against their plain versions there and skip elsewhere.  ``chip_smoke.py`` runs
@@ -24,6 +25,7 @@ import minigrid_tpu_torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.ops import _build, distractors, fused_step, obs_gather, threefry
+from minigrid_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "minigrid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -77,9 +79,9 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     grid = torch.from_numpy(random_packed(r, (5, 8, 8)))
     pos = torch.from_numpy(r.integers(0, 8, (5, 2)).astype(np.int32))
     dirs = torch.from_numpy(r.integers(0, 4, 5).astype(np.int32))
-    before = obs_gather.LAUNCHES
+    before = trace.launches("obs_gather")
     out = obs_gather.gather_view(grid, pos, dirs, 7)
-    assert obs_gather.LAUNCHES == before
+    assert trace.launches("obs_gather") == before
     assert torch.equal(out, obs_gather.gather_view_plain(grid, pos, dirs, 7))
 
 
@@ -117,9 +119,9 @@ def test_library_path_follows_source_content(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_is_built():
-    """Each csrc/*.cu has a wrapper module that loads it by name."""
+    """Each csrc/*.cu has a wrapper whose ``Kernel`` loads it by name."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["distractors", "fused_step", "obs_gather", "threefry"]
+    assert sources == sorted(KERNELS) == ["distractors", "fused_step", "obs_gather", "threefry"]
 
 
 def _fused_inputs(env_id: str, n: int, device, seed: int = 0, walk: int = 12,
@@ -140,9 +142,9 @@ def _fused_inputs(env_id: str, n: int, device, seed: int = 0, walk: int = 12,
 
 def test_fused_cpu_tensors_take_the_plain_version_and_do_not_count():
     args, spec = _fused_inputs("MiniGrid-DoorKey-8x8-v0", 6, "cpu")
-    before = fused_step.LAUNCHES
+    before = trace.launches("fused_step")
     got = fused_step.fused_step(*args, spec)
-    assert fused_step.LAUNCHES == before
+    assert trace.launches("fused_step") == before
     want = fused_step.fused_step_plain(*args, spec)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -268,6 +270,79 @@ def test_fused_wrapper_refuses_a_tile_over_shared_memory():
     assert out[0].shape == (2, 56, 56)
 
 
+# -- the launch seam (ops/_build.py::Kernel) ------------------------------------------
+
+KERNELS = {k.name: k for k in (obs_gather.KERNEL, fused_step.KERNEL, threefry.KERNEL,
+                               distractors.KERNEL)}
+STREAM = 77  # the stand-in card's current stream handle
+
+
+@pytest.fixture
+def stub_card(monkeypatch):
+    """A CUDA device for ``Kernel.launch`` off the card: device 0 is
+    current, its stream handle STREAM; the running launch counts are put
+    back afterwards.  A test substitutes the C entry."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: STREAM,
+                        raising=False)
+    monkeypatch.setattr(trace, "_launches", dict(trace._launches))
+    return torch.device("cuda", 0)
+
+
+def _call_on_meta(name: str) -> None:
+    """``name``'s wrapper with every tensor on the meta device, where each
+    check before the device's passes."""
+    if name == "obs_gather":
+        pos = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+        obs_gather.gather_view(torch.zeros((2, 8, 8), dtype=torch.int32, device="meta"), pos,
+                               pos[:, 0].contiguous(), 7)
+    elif name == "fused_step":
+        args, spec = _fused_inputs("MiniGrid-DoorKey-5x5-v0", 4, "meta")
+        fused_step.fused_step(*args, spec)
+    elif name == "threefry":
+        threefry.split(torch.zeros((4, 2), dtype=torch.int64, device="meta"), 2)
+    else:
+        args = _distractor_args()
+        distractors.place(**{**args, "b": {k: v.to("meta") for k, v in args["b"].items()},
+                             "keys": args["keys"].to("meta")})
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_a_device_without_the_kernel_raises(name):
+    before = trace.launches(name)
+    with pytest.raises(ValueError, match=f"^no {name} kernel for device meta$"):
+        _call_on_meta(name)
+    assert trace.launches(name) == before
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_a_failed_launch_raises_with_the_kernel_and_its_error(name, stub_card):
+    kernel = KERNELS[name]
+    before = trace.launches(name)
+    with kernel.substituted(lambda *args: 700):
+        with pytest.raises(RuntimeError, match=f"^{name} kernel launch failed: CUDA error 700$"):
+            kernel.launch(stub_card, 1, 2)
+    assert trace.launches(name) == before
+
+
+def test_kernel_binds_its_entry_with_the_stream_last():
+    """``bind`` types the C entry of the kernel's name (the wrapper's
+    arguments, then the stream) on any library, as ``tools/kernel_ab.py``
+    binds another build; the distractors kernel first checks its ``Args``."""
+    class Lib:
+        distractors_args_size = staticmethod(lambda: ctypes.sizeof(distractors.Args))
+
+    lib = Lib()
+    for name, kernel in KERNELS.items():
+        setattr(lib, name, type("Entry", (), {})())
+        fn = kernel.bind(lib)
+        assert fn is getattr(lib, name) and fn.restype is ctypes.c_int
+        assert fn.argtypes == [*kernel.argtypes, ctypes.c_void_p]
+    Lib.distractors_args_size = staticmethod(lambda: 4)
+    with pytest.raises(RuntimeError, match="Args is 4 bytes"):
+        distractors.KERNEL.bind(lib)
+
+
 # -- on the card ------------------------------------------------------------------
 
 @pytest.mark.gpu
@@ -279,10 +354,10 @@ def test_kernel_matches_plain_all_poses(cuda, w, h, v):
     dirs = torch.tensor([d for *_, d in combos], dtype=torch.int32)
     grid = torch.from_numpy(random_packed(r, (len(combos), w, h)))
     want = obs_gather.gather_view_plain(grid, pos, dirs, v)
-    before = obs_gather.LAUNCHES
+    before = trace.launches("obs_gather")
     got = obs_gather.gather_view(grid.to(cuda), pos.to(cuda), dirs.to(cuda), v)
     torch.cuda.synchronize()
-    assert obs_gather.LAUNCHES == before + 1
+    assert trace.launches("obs_gather") == before + 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -316,9 +391,9 @@ def test_observations_on_the_card_go_through_the_kernel(cuda):
     env = minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0")
     p = env.default_params
     keys = rng.split(rng.PRNGKey(0, cuda), 64)
-    before = obs_gather.LAUNCHES
+    before = trace.launches("obs_gather")
     obs, st = env.reset(keys, p, device=cuda)
-    assert obs_gather.LAUNCHES == before + 1
+    assert trace.launches("obs_gather") == before + 1
     cpu_obs, _ = env.reset(keys.cpu(), p, device="cpu")
     assert torch.equal(obs["image"].cpu(), cpu_obs["image"])
 
@@ -341,10 +416,10 @@ def test_fused_kernel_matches_plain(cuda, env_id, overrides):
 
 def _assert_fused_kernel_is_plain(cuda, args, spec):
     want = fused_step.fused_step_plain(*args, spec)
-    before = fused_step.LAUNCHES
+    before = trace.launches("fused_step")
     got = fused_step.fused_step(*(a.to(cuda) for a in args), spec)
     torch.cuda.synchronize()
-    assert fused_step.LAUNCHES == before + 1
+    assert trace.launches("fused_step") == before + 1
     for name, g, w in zip(("grid", "agent", "image", "reward", "term", "trunc",
                            "key", "t"), got, want):
         g = g.cpu()
@@ -436,7 +511,7 @@ def test_fused_vector_env_on_the_card_is_one_launch_a_step(cuda):
     for dev in (cuda, torch.device("cpu")):
         fv = FusedVectorEnv(env, 64, device=dev)
         _, fs = fv.reset(rng.PRNGKey(1, dev))
-        before = fused_step.LAUNCHES
+        before = trace.launches("fused_step")
         r = np.random.default_rng(0)
         images = []
         for _ in range(20):
@@ -444,7 +519,7 @@ def test_fused_vector_env_on_the_card_is_one_launch_a_step(cuda):
             obs, fs, *_ = fv.step(fs, a)
             images.append(obs["image"].cpu())
         runs[dev.type] = (images, {k: v.cpu() for k, v in fs.items()},
-                          fused_step.LAUNCHES - before)
+                          trace.launches("fused_step") - before)
     assert runs["cuda"][2] == 20 and runs["cpu"][2] == 0
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert torch.equal(g, c)
@@ -482,9 +557,9 @@ def test_gather_kernel_on_zoo_states(cuda, env_id):
 
     env, p, st = _walked_states(env_id, 300, cuda)
     args = (st.grid, st.agent_pos, st.agent_dir, p.agent_view_size)
-    before = obs_gather.LAUNCHES
+    before = trace.launches("obs_gather")
     got = obs_gather.gather_view(*args)
-    assert obs_gather.LAUNCHES == before + 1
+    assert trace.launches("obs_gather") == before + 1
     cpu = map_fields(lambda x: x.cpu(), st)
     want = obs_gather.gather_view_plain(cpu.grid, cpu.agent_pos, cpu.agent_dir,
                                         p.agent_view_size)
@@ -517,7 +592,7 @@ def test_zoo_vector_env_on_the_card_gathers_every_step(cuda, env_id):
     runs = {}
     for dev in (cuda, torch.device("cpu")):
         venv = minigrid_tpu_torch.make_vec(env_id, 64, device=dev, max_steps=7)
-        before = obs_gather.LAUNCHES
+        before = trace.launches("obs_gather")
         obs, st = venv.reset(rng.PRNGKey(3, dev))
         r = np.random.default_rng(0)
         images = []
@@ -525,7 +600,7 @@ def test_zoo_vector_env_on_the_card_gathers_every_step(cuda, env_id):
             a = torch.from_numpy(r.integers(0, 8, 64).astype(np.int32))
             obs, st, reward, *_ = venv.step(st, a)
             images.append((obs["image"].cpu(), reward.cpu().view(torch.int32)))
-        runs[dev.type] = (images, state_to_numpy(st), obs_gather.LAUNCHES - before)
+        runs[dev.type] = (images, state_to_numpy(st), trace.launches("obs_gather") - before)
     assert runs["cuda"][2] == 17 and runs["cpu"][2] == 0
     for (gi, gr), (ci, cr) in zip(runs["cuda"][0], runs["cpu"][0]):
         assert torch.equal(gi, ci) and torch.equal(gr, cr)
@@ -545,7 +620,7 @@ def test_babyai_on_the_card_gathers_every_step(cuda, env_id):
     for dev in (cuda, torch.device("cpu")):
         venv = minigrid_tpu_torch.make_vec(env_id, 64, device=dev, max_steps=7)
         assert venv.reset_strategy == "pooled" and venv.best_effort_refill
-        before = obs_gather.LAUNCHES
+        before = trace.launches("obs_gather")
         obs, st = venv.reset(rng.PRNGKey(5, dev))
         r = np.random.default_rng(1)
         steps = []
@@ -554,7 +629,7 @@ def test_babyai_on_the_card_gathers_every_step(cuda, env_id):
             obs, st, reward, *_ = venv.step(st, a)
             steps.append((obs["image"].cpu(), obs["mission"].cpu(),
                           reward.cpu().view(torch.int32)))
-        runs[dev.type] = (steps, state_to_numpy(st), obs_gather.LAUNCHES - before)
+        runs[dev.type] = (steps, state_to_numpy(st), trace.launches("obs_gather") - before)
     assert runs["cuda"][2] == 17 and runs["cpu"][2] == 0
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert all(torch.equal(x, y) for x, y in zip(g, c))
@@ -578,7 +653,7 @@ def test_later_slice_ids_on_the_card_match_the_cpu(cuda, env_id):
     runs = {}
     for dev in (cuda, torch.device("cpu")):
         venv = minigrid_tpu_torch.make_vec(env_id, 64, device=dev)
-        before = obs_gather.LAUNCHES
+        before = trace.launches("obs_gather")
         obs, st = venv.reset(rng.PRNGKey(6, dev))
         steps = [(obs["image"].cpu(), obs["mission"].cpu())]
         for t in range(8):
@@ -586,7 +661,7 @@ def test_later_slice_ids_on_the_card_match_the_cpu(cuda, env_id):
             obs, st, reward, term, trunc, _ = venv.step(st, a)
             steps.append((obs["image"].cpu(), obs["mission"].cpu(),
                           reward.cpu().view(torch.int32), term.cpu(), trunc.cpu()))
-        runs[dev.type] = (steps, state_to_numpy(st), obs_gather.LAUNCHES - before)
+        runs[dev.type] = (steps, state_to_numpy(st), trace.launches("obs_gather") - before)
     assert runs["cuda"][2] == 9 and runs["cpu"][2] == 0
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert all(torch.equal(x, y) for x, y in zip(g, c))
@@ -628,7 +703,7 @@ def test_wrapped_walk_on_the_card_matches_the_cpu(cuda, wrapper, kwargs, gathers
         env = getattr(wrappers, wrapper)(
             minigrid_tpu_torch.make("MiniGrid-DoorKey-8x8-v0", max_steps=4), **kwargs)
         venv = VectorEnv(env, 64, device=dev)
-        before = obs_gather.LAUNCHES
+        before = trace.launches("obs_gather")
         obs, st = venv.reset(rng.PRNGKey(8, dev))
         steps = []
         for t in range(12):
@@ -636,7 +711,7 @@ def test_wrapped_walk_on_the_card_matches_the_cpu(cuda, wrapper, kwargs, gathers
             obs, st, reward, term, trunc, _ = venv.step(st, a)
             steps.append([obs[k].cpu() for k in sorted(obs)]
                          + [reward.cpu().view(torch.int32), term.cpu(), trunc.cpu()])
-        runs[dev.type] = (steps, state_to_numpy(st), obs_gather.LAUNCHES - before)
+        runs[dev.type] = (steps, state_to_numpy(st), trace.launches("obs_gather") - before)
     assert runs["cuda"][2] == 13 * gathers and runs["cpu"][2] == 0
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert all(torch.equal(x, y) for x, y in zip(g, c))
@@ -670,7 +745,7 @@ def test_threefry_kernel_matches_plain(cuda):
     must make, and the flipped-bit self-check."""
     import chip_smoke
 
-    assert chip_smoke.check_threefry_kernel(cuda, threefry) == 0
+    assert chip_smoke.check_threefry_kernel(cuda) == 0
 
 
 @pytest.mark.gpu
@@ -682,7 +757,7 @@ def test_draws_on_the_card_never_take_the_eager_hash(cuda, monkeypatch):
 
     monkeypatch.setattr(rng, "threefry2x32", refuse)
     keys = rng.split(rng.PRNGKey(3, cuda), 6)
-    before = threefry.LAUNCHES
+    before = trace.launches("threefry")
     draws = [rng.bits(keys, (5,)), rng.fold_in(keys, 9),
              rng.fold_in(keys[:, None], torch.arange(4, device=cuda)),
              rng.randint(keys, (3,), 0, 7), rng.uniform(keys, (3,)),
@@ -690,7 +765,7 @@ def test_draws_on_the_card_never_take_the_eager_hash(cuda, monkeypatch):
              rng.categorical_one_key(keys[0], torch.zeros(6, 5, device=cuda))]
     torch.cuda.synchronize()
     assert all(d.device.type == "cuda" for d in draws)
-    assert threefry.LAUNCHES - before == 1 + 1 + 1 + 2 + 1 + 2 + 1 + 1
+    assert trace.launches("threefry") - before == 1 + 1 + 1 + 2 + 1 + 2 + 1 + 1
 
 
 @pytest.mark.gpu
@@ -757,12 +832,12 @@ def test_distractors_cpu_tensors_take_the_plain_loop_and_do_not_count(monkeypatc
     monkeypatch.setattr(distractors, "place", refuse)
     args = _distractor_args(enabled=torch.tensor([True, False] * 3), color_override=4)
     env = minigrid_tpu_torch.make("BabyAI-GoTo-v0")
-    before = distractors.LAUNCHES
+    before = trace.launches("distractors")
     got = env.add_distractors(args["b"], args["keys"], env.default_params, num_distractors=18,
                               all_unique=False, enabled=args["enabled"], color_override=4)
     want = env._add_distractors_plain(args["b"], args["keys"], env.default_params, None, None,
                                       18, False, args["enabled"], 4)
-    assert distractors.LAUNCHES == before
+    assert trace.launches("distractors") == before
     for g, w in zip((got[0]["grid"], got[0]["obj_mask"], got[1], got[2]),
                     (want[0]["grid"], want[0]["obj_mask"], want[1], want[2])):
         assert torch.equal(g, w)
@@ -794,7 +869,7 @@ def test_distractors_kernel_matches_plain(cuda):
     launch each, and the flipped-bit self-check."""
     import chip_smoke
 
-    assert chip_smoke.check_distractors_kernel(cuda, distractors) == 0
+    assert chip_smoke.check_distractors_kernel(cuda) == 0
 
 
 @pytest.mark.gpu
@@ -803,7 +878,7 @@ def test_goto_step_is_one_distractors_launch(cuda):
     20 threefry launches of the refill's other draws."""
     import chip_smoke
 
-    out = chip_smoke.check_goto_hashes(cuda, threefry, distractors)
+    out = chip_smoke.check_goto_hashes(cuda)
     assert out["distractors_per_step"] == [1, 1, 1] and out["per_step"] == [20, 20, 20]
 
 
@@ -813,7 +888,7 @@ def test_distractors_kernel_on_goto_and_boss_levels(cuda):
     their 16-level refills, bitwise the plain loop on the CPU."""
     import chip_smoke
 
-    held = chip_smoke.check_distractor_levels(cuda, distractors)
+    held = chip_smoke.check_distractor_levels(cuda)
     assert 16 in held["BabyAI-GoTo-v0"] and 16 in held["BabyAI-BossLevel-v0"]
 
 

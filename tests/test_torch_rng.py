@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.ops import threefry
+from minigrid_tpu_torch.utils import trace
 from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
 
 CPU = torch.device("cpu")
@@ -249,9 +250,9 @@ def test_cpu_tensors_take_the_plain_path(draw, monkeypatch):
         raise AssertionError("a CPU draw reached the kernel")
 
     monkeypatch.setattr(threefry, "launch", refuse)
-    assert threefry.LAUNCHES == 0
+    assert trace.launches("threefry") == 0
     out = _DRAWS[draw](_words(4))
-    assert out.device == CPU and threefry.LAUNCHES == 0
+    assert out.device == CPU and trace.launches("threefry") == 0
 
 
 _REFUSED = {
@@ -283,4 +284,4 @@ def test_kernel_wrapper_refuses(case):
     call, error, match = _REFUSED[case]
     with pytest.raises(error, match=match):
         call()
-    assert threefry.LAUNCHES == 0
+    assert trace.launches("threefry") == 0

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import pytest
 
-from minigrid_tpu_torch.ops import obs_gather
+from minigrid_tpu_torch.utils import trace
 
 from tests.test_torch_kernels import cuda  # noqa: F401  (skips without a card)
 
@@ -40,9 +40,9 @@ def test_run_smoke_on_the_card(cuda, capsys):
     version and the kernel, then the kernel gate at B=4096."""
     from minigrid_tpu_torch.tools import smoke
 
-    before = obs_gather.LAUNCHES
+    before = trace.launches("obs_gather")
     smoke.run_smoke(device=cuda)
     captured = capsys.readouterr()
     assert captured.out.splitlines()[-1] == "SMOKE OK"
     assert "device kernel gate ok" in captured.err
-    assert obs_gather.LAUNCHES == before + 2  # the check's launch and the gate's
+    assert trace.launches("obs_gather") == before + 2  # the check's launch and the gate's

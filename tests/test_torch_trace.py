@@ -10,8 +10,11 @@ tools that read them (``tools/profile.py``'s span table, ``tools/bench.py``'s
 from __future__ import annotations
 
 import json
+import subprocess
+import sys
 import time
 import tracemalloc
+from pathlib import Path
 
 import pytest
 import torch
@@ -22,6 +25,7 @@ from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.utils import trace
 
 from tests.test_torch_bridge import yield_cpu  # noqa: F401  (yields the CPU under xdist)
+from tests.test_torch_kernels import KERNELS, STREAM, stub_card  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 
@@ -150,13 +154,42 @@ def test_a_device_counter_is_summed_only_when_read(monkeypatch):
 
 
 def test_report_carries_the_kernel_launch_counts():
-    from minigrid_tpu_torch.ops import distractors, fused_step, obs_gather, threefry
-
     counters = trace.report()["counters"]
-    assert counters["obs_gather.launches"] == obs_gather.LAUNCHES
-    assert counters["fused_step.launches"] == fused_step.LAUNCHES
-    assert counters["threefry.launches"] == threefry.LAUNCHES
-    assert counters["distractors.launches"] == distractors.LAUNCHES
+    for name in KERNELS:
+        assert counters[f"{name}.launches"] == trace.launches(name)
+
+
+def test_report_lists_every_kernel_from_import_and_after_reset():
+    """A fresh process's report has each kernel's running count at 0, with
+    no ops module imported by the trace; ``reset`` leaves the counts."""
+    code = ("import json\n"
+            "from minigrid_tpu_torch.utils import trace\n"
+            "print(json.dumps(trace.report()['counters']))\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).parent.parent,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+    assert json.loads(done.stdout.splitlines()[-1]) == {f"{n}.launches": 0 for n in KERNELS}
+    trace.enable()
+    trace.count("hits", 3)
+    trace.reset()
+    assert trace.report()["counters"] == {f"{n}.launches": trace.launches(n) for n in KERNELS}
+
+
+@pytest.mark.parametrize("name,counter", [
+    ("distractors", "roomgrid.distractors_kernel"), ("fused_step", None),
+    ("obs_gather", None), ("threefry", "rng.threefry")])
+def test_a_launch_adds_one_and_its_traced_counter_only_while_tracing(name, counter,
+                                                                     stub_card):
+    kernel, calls = KERNELS[name], []
+    before = trace.launches(name)
+    with kernel.substituted(lambda *args: calls.append(args) or 0):
+        kernel.launch(stub_card, 5, 6)
+        assert trace.launches(name) == before + 1 and _counters() == {}
+        trace.enable()
+        kernel.launch(stub_card, 5, 6)
+    assert calls == [(5, 6, STREAM)] * 2  # the stream handle last
+    assert trace.launches(name) == before + 2
+    assert _counters() == ({} if counter is None else {counter: 1})
 
 
 # -- the layers ------------------------------------------------------------------------
