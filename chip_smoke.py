@@ -33,7 +33,11 @@ printing a result:
    until the combos run out, a fixed column, a row, ``enabled`` and
    ``color_override`` per env, a fixed color while disabled, init_rooms'
    expanded grid and strided keys, a column-major grid, and the
-   flipped-bit self-check;
+   flipped-bit self-check; the descriptor kernel through ``_rand_objs``
+   against the plain loop on the CPU, one launch a call: every LevelGen
+   preset at 16 levels on two seeds and at B=4097, BossLevel at 1 level,
+   with every object taken off the grid (every lane spends its 24 redraws)
+   and with a column-major grid, and the flipped-bit self-check;
 4. drive each main path with every kernel's launch count zeroed just before
    and read just after: ``make_vec("MiniGrid-DoorKey-8x8-v0", 4096,
    reset_strategy="pooled", pool_refill=64)`` through the bench loop of
@@ -43,7 +47,10 @@ printing a result:
    then ``make_vec("BabyAI-GoTo-v0", 4096)``, each of three steps exactly
    20 threefry launches and one distractors launch (its 16-level refill's
    draws), and every distractors launch of a B=4096 GoTo and BossLevel
-   reset and three refills bitwise the plain loop on the CPU;
+   reset and three refills bitwise the plain loop on the CPU; then
+   ``make_vec("BabyAI-BossLevel-v0", 4096)``, each of three steps exactly
+   39 threefry launches and one descriptor launch, and every descriptor
+   launch of its reset and refills bitwise the plain loop on the CPU;
    then ``FusedVectorEnv(make("MiniGrid-DoorKey-8x8-v0"), 4096)`` for 648
    steps (one ``fused_step`` launch a step, one ``obs_gather`` launch at
    reset, every env regenerated at least once), and the same fused program
@@ -192,7 +199,9 @@ printing a result:
    at the GoTo generator's shapes (a 16 x 5 split, 16 x 30 and 4096 x 484
    uniform bits) with the bound and the host time a call takes to issue,
    the distractors kernel and its plain loop on GoTo's call at 16 and 4096
-   levels with the bound and the host time of a call, and time both engines end to end with the
+   levels with the bound and the host time of a call, the descriptor
+   kernel and its plain loop on BossLevel's call at 16 and 4096 levels
+   likewise, and time both engines end to end with the
    actions of each run drawn before its timer starts.
 
 It prints one JSON line of kernel records, then the card line as
@@ -451,6 +460,16 @@ GOTO_DISTRACTOR_LAUNCHES_PER_STEP = 1
 # (all_unique), the cell's key and its randint
 DISTRACTOR_HASHES = {False: 5 + 4 + 4 + 4 + 1 + 4, True: 5 + 30 + 4 + 4 + 1 + 4}
 DISTRACTORS_TIMED = (16, NUM_ENVS)  # GoTo's refill and reset, 18 objects a level
+# every LevelGen preset: grids of 8x8 to 22x22, with and without locations,
+# implicit unlocking and a locked room
+LEVELGEN_IDS = ("BabyAI-BossLevel-v0", "BabyAI-BossLevelNoUnlock-v0", "BabyAI-Synth-v0",
+                "BabyAI-SynthS5R2-v0", "BabyAI-SynthLoc-v0", "BabyAI-SynthSeq-v0",
+                "BabyAI-MiniBossLevel-v0", "BabyAI-GoToSeq-v0", "BabyAI-PickupLoc-v0")
+# one BossLevel VectorEnv.step: its 16-level refill's draws outside the
+# descriptor loop and the distractors, whose loops are a launch each
+BOSS_HASHES_PER_STEP = 39
+BOSS_DESCS_PER_STEP = 1
+DESCS_TIMED = (16, NUM_ENVS)  # BossLevel's refill and reset
 # (name, keys, counters a key, the call) timed in phase 5: the GoTo
 # generator's 5-way split of 16 keys and uniform draws of 16 x 30 and 4096 x 484
 THREEFRY_TIMED = (("split 16x5", 16, 5, "split"), ("bits of uniform 16x30", 16, 30, "bits"),
@@ -826,6 +845,158 @@ def check_distractor_levels(dev) -> dict:
     if not all(held.values()):
         raise AssertionError(f"a level set ran no distractors kernel: {held}")
     return held
+
+
+# -- the descriptor kernel ---------------------------------------------------------
+
+def descs_inputs(env, keys: torch.Tensor) -> tuple:
+    """``gen_level``'s arguments to ``_rand_objs`` for the levels of
+    ``keys``, on their device: (key_d1, key_d2, builder, params,
+    locked_rect, has_locked, clause kinds)."""
+    from minigrid_tpu_torch.core import rng
+
+    p = env.default_params
+    k = rng.split(keys, 16).unbind(1)
+    b, has_locked, locked_rect = env._layout(k, p)
+    kinds = env._rand_action_kind(rng.fold_in(k[10][:, None],
+                                              torch.arange(4, device=keys.device)))
+    return k[11], k[12], b, p, locked_rect, has_locked, kinds
+
+
+def _descs_on(inputs: tuple, dev) -> tuple:
+    k1, k2, b, p, rect, locked, kinds = inputs
+    return (k1.to(dev), k2.to(dev), _builder_on(b, dev), p, rect.to(dev), locked.to(dev),
+            kinds.to(dev))
+
+
+def descs_cases(dev) -> list:
+    """(what, env, inputs on ``dev``): ``_rand_objs``' arguments as
+    ``gen_level`` makes them for every LevelGen preset (LEVELGEN_IDS) at 16
+    levels on two seeds and at RAGGED_ENVS on one, BossLevel's at 1 level;
+    BossLevel's 16 with every object taken off the grid, so that every lane
+    spends its fuel, and with a column-major grid."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import constants as C
+    from minigrid_tpu_torch.core import rng
+
+    cases = []
+    for i, env_id in enumerate(LEVELGEN_IDS):
+        env = minigrid_tpu_torch.make(env_id)
+        for n, seed in ((16, 2 * i), (16, 2 * i + 1), (RAGGED_ENVS, 100 + i)):
+            keys = rng.split(rng.PRNGKey(seed, dev), n)
+            cases.append((f"{env_id} B={n} seed {seed}", env, descs_inputs(env, keys)))
+    boss = minigrid_tpu_torch.make(BOSS)
+    cases.append((f"{BOSS} B=1", boss, descs_inputs(boss, rng.split(rng.PRNGKey(7, dev), 1))))
+    k1, k2, b, p, rect, locked, kinds = descs_inputs(boss, rng.split(rng.PRNGKey(8, dev), 16))
+    kind = b["grid"] & 0xFF
+    objects = sum(kind == C.OBJECT_TO_IDX[t] for t in ("key", "ball", "box", "door"))
+    bare = torch.where(objects.bool(), C.OBJECT_TO_IDX["empty"], b["grid"])
+    cases.append((f"{BOSS} B=16 without objects: every lane spends its fuel", boss,
+                  (k1, k2, {**b, "grid": bare}, p, rect, locked, kinds)))
+    column_major = b["grid"].transpose(1, 2).contiguous().transpose(1, 2)
+    cases.append((f"{BOSS} B=16 a column-major grid", boss,
+                  (k1, k2, {**b, "grid": column_major}, p, rect, locked, kinds)))
+    return cases
+
+
+def check_descs_kernel(dev) -> int:
+    """Phase 3: every case of :func:`descs_cases` through ``_rand_objs`` on
+    the card (one launch of the descriptor kernel each) against the plain
+    loop on the CPU from copies of its inputs, bitwise: d1, d2 and the
+    redraws; some lane spends its fuel; the flipped-bit self-check on the
+    widest d1.  Returns the largest |kernel - plain| (0 when bitwise
+    equal)."""
+    from minigrid_tpu_torch.babyai.levelgen import DESC_FUEL
+
+    cpu = torch.device("cpu")
+    worst, widest, spent = 0, None, 0
+    for what, env, inputs in descs_cases(dev):
+        before = trace.launches("descs")
+        got = env._rand_objs(*inputs)
+        torch.cuda.synchronize()
+        made = trace.launches("descs") - before
+        want = env._rand_objs_plain(*_descs_on(inputs, cpu))
+        if made != 1:
+            raise AssertionError(f"descs {what}: {made} launches, expected 1")
+        for name, g, w in zip(("d1", "d2", "redraws"), got, want):
+            g = g.cpu()
+            bad = mismatches(g, w)
+            if bad:
+                raise AssertionError(f"descs kernel != plain for {what}: {name} {bad} entries")
+            worst = max(worst, max_abs_err(g, w))
+        redraws = want[2]
+        spent += int((redraws == DESC_FUEL).sum())
+        if "without objects" in what and not bool((redraws == DESC_FUEL).all()):
+            raise AssertionError(f"descs {what}: a lane matched an empty grid")
+        if widest is None or want[0].numel() > widest[1].numel():
+            widest = (got[0].cpu(), want[0], what)
+        log(f"  descs {what}: bitwise equal, 1 launch, redraws max {int(redraws.max())} "
+            f"sum {int(redraws.sum())}")
+    if not spent:
+        raise AssertionError("no lane spent its fuel")
+    check_flipped_bit(*widest)
+    return worst
+
+
+def check_boss_descs(dev) -> dict:
+    """Phase 4: ``make_vec(BOSS, NUM_ENVS)`` on the card, its reset and
+    three steps: every ``_rand_objs`` call (the reset's levels, each step's
+    16-level refill) held bitwise against the plain loop on the CPU from
+    copies of its inputs, and each step exactly BOSS_DESCS_PER_STEP
+    descriptor launches and BOSS_HASHES_PER_STEP threefry launches.
+    Returns the launches and the levels a call."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.babyai.levelgen import LevelGen
+    from minigrid_tpu_torch.core import rng
+
+    calls: list = []
+    orig = LevelGen._rand_objs
+
+    def recorded(self, *inputs):
+        out = orig(self, *inputs)
+        calls.append((self, _descs_on(inputs, torch.device("cpu")), [t.cpu() for t in out]))
+        return out
+
+    def counts() -> tuple[int, int]:
+        return trace.launches("threefry"), trace.launches("descs")
+
+    LevelGen._rand_objs = recorded
+    try:
+        venv = minigrid_tpu_torch.make_vec(BOSS, NUM_ENVS, device=dev)
+        if venv.pool_refill != 16:
+            raise AssertionError(f"{BOSS}: pool_refill {venv.pool_refill}, the count assumes 16")
+        before = counts()
+        _, state = venv.reset(rng.PRNGKey(43, dev))
+        torch.cuda.synchronize()
+        reset = tuple(a - b for a, b in zip(counts(), before))
+        per_step = []
+        for k in rng.split(rng.PRNGKey(143, dev), 3):
+            action = rng.randint(k, (NUM_ENVS,), 0, venv.env.num_actions)
+            torch.cuda.synchronize()
+            before = counts()
+            _, state, *_ = venv.step(state, action)
+            torch.cuda.synchronize()
+            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    finally:
+        LevelGen._rand_objs = orig
+    for env, inputs, got in calls:
+        want = env._rand_objs_plain(*inputs)
+        for name, g, w in zip(("d1", "d2", "redraws"), got, want):
+            bad = mismatches(g, w)
+            if bad:
+                raise AssertionError(f"{BOSS}: a descs call of {g.shape[0]} levels, {name} "
+                                     f"differs in {bad} entries")
+    levels = [c[2][2].shape[0] for c in calls]
+    want = (BOSS_HASHES_PER_STEP, BOSS_DESCS_PER_STEP)
+    if per_step != [want] * 3:
+        raise AssertionError(f"{BOSS} B={NUM_ENVS}: (threefry, descs) launches a step "
+                             f"{per_step}, expected {want}")
+    if 16 not in levels:
+        raise AssertionError(f"{BOSS}: no 16-level refill reached the kernel: {levels}")
+    log(f"  {BOSS} B={NUM_ENVS}: {len(calls)} descs calls bitwise the plain loop (levels a "
+        f"call: {levels}); {reset[0]} threefry and {reset[1]} descs launches at reset, "
+        f"{per_step} a step")
+    return {"reset": reset, "per_step": per_step, "levels": levels}
 
 
 def check_gather_doorkey(dev, obs_gather) -> tuple[int, dict]:
@@ -3695,6 +3866,68 @@ def time_distractors(dev) -> list[dict]:
     return out
 
 
+def descs_bound_ms(redraws: torch.Tensor, cells: int, locked_mask: bool
+                   ) -> tuple[float, str, dict]:
+    """Least time for one descriptor call whose lanes redrew ``redraws``
+    int32[B, 8] times, on grids of ``cells`` words: each grid (and, without
+    implicit unlocking, its locked-room mask) read once, the keys, poses and
+    kinds read, the descriptors and redraws written, over HBM bandwidth,
+    against the useful hashes (1 + 22 a draw, a lane) at HASH_OPS operations
+    each over the int32 rate."""
+    n = redraws.shape[0]
+    nbytes = n * (cells * (5 if locked_mask else 4) + 2 * 16 + 12 + 16 + 1 + 8 * 4 * 4)
+    ops = (redraws.numel() + 22 * int((1 + redraws.long()).sum())) * HASH_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), bound_by, {"bytes": nbytes, "int_ops": ops}
+
+
+def time_descs(dev) -> list[dict]:
+    """Phase 5: BossLevel's descriptor call at each of DESCS_TIMED levels:
+    the kernel's device time (CUDA graphs), the bound, and the host time a
+    call takes; the plain loop's time a call on the card (CUDA events, its
+    hashes on the threefry kernel, its host reads included: it cannot be
+    captured) and its host time."""
+    import minigrid_tpu_torch
+    from minigrid_tpu_torch.core import rng
+
+    env = minigrid_tpu_torch.make(BOSS)
+    out = []
+    for n in DESCS_TIMED:
+        inputs = descs_inputs(env, rng.split(rng.PRNGKey(n + 1, dev), n))
+
+        def kernel(inputs=inputs):
+            return env._rand_objs(*inputs)
+
+        def plain(inputs=inputs):
+            return env._rand_objs_plain(*inputs)
+
+        want = plain()
+        for g, w in zip(kernel(), want):
+            if mismatches(g, w):
+                raise AssertionError(f"descs B={n}: kernel != plain on the card")
+        plain_ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain()
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+        grid = inputs[2]["grid"]
+        bound, bound_by, work = descs_bound_ms(want[2], grid.shape[1] * grid.shape[2],
+                                               not env.implicit_unlock)
+        out.append({"what": f"{BOSS} B={n}", "levels": n,
+                    "redraws_max": int(want[2].max()), "redraws_sum": int(want[2].sum()),
+                    "ms": gpu_time_ms(kernel), "plain_ms": statistics.median(plain_ms),
+                    "bound_ms": bound, "bound_by": bound_by, "work": work,
+                    "host_us": host_us(kernel, HOST_CALLS // 10),
+                    "plain_host_us": host_us(plain, 5)})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a card",
@@ -3730,11 +3963,13 @@ def main() -> int:
     _, fused_args, fused_spec = fused_batches[0]
     threefry_err = check_threefry_kernel(dev)
     distractors_err = check_distractors_kernel(dev)
+    descs_err = check_descs_kernel(dev)
 
     log("phase 4: the main paths")
     main = drive_main_path(dev, counters)
     goto_hashes = check_goto_hashes(dev)
     check_distractor_levels(dev)
+    boss_descs = check_boss_descs(dev)
     card_matches_cpu(dev)
     fused_main = drive_fused_path(dev, counters)
     fused_card_matches_cpu(dev)
@@ -3874,6 +4109,15 @@ def main() -> int:
             f"host {r['host_us']:.2f} us a kernel call, {r['plain_host_us']:.1f} us a "
             f"plain call [{card}]")
 
+    descs_times = time_descs(dev)
+    for r in descs_times:
+        log(f"  descs {r['what']}: kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.4f} us "
+            f"({r['bound_by']}; {r['work']}), {r['bound_ms'] / r['ms']:.4f} of the bound; "
+            f"redraws max {r['redraws_max']} sum {r['redraws_sum']}; host "
+            f"{r['host_us']:.2f} us a kernel call, {r['plain_host_us']:.1f} us a plain call "
+            f"[{card}]")
+
     from minigrid_tpu_torch.tools import bench
 
     venv = bench.make_venv(dev)
@@ -3948,6 +4192,19 @@ def main() -> int:
         "bound_by": distractors_times[0]["bound_by"],
         "library_ms": None,
         "shapes": distractors_times,
+    }, {
+        "name": "descs",
+        "route": "cuda",
+        "source": "minigrid_tpu_torch/csrc/descs.cu",
+        "replaces": None,
+        "launches": boss_descs["per_step"][0][1],
+        "max_abs_err": descs_err,
+        "ms": descs_times[0]["ms"],
+        "plain_ms": descs_times[0]["plain_ms"],
+        "bound_ms": descs_times[0]["bound_ms"],
+        "bound_by": descs_times[0]["bound_by"],
+        "library_ms": None,
+        "shapes": descs_times,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

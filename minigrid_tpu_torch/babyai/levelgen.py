@@ -10,19 +10,23 @@ first desc of each clause, 4 for the second) in one fueled ``while_loop`` of
 at most 24 redraws: a lane redraws while nothing matches it.  Lane s starts
 from ``fold_in(key, s)`` split into (chain, first draw); its r-th redraw
 takes the second half of the r-th split of its own chain, whatever the other
-lanes do, and an accepted lane never redraws.  Here that loop is up to 24
+lanes do, and an accepted lane never redraws.  The plain version,
+:meth:`LevelGen._rand_objs_plain`, which a CPU tensor takes, is up to 24
 masked passes over the (env, lane) pairs still redrawing, compacted each
 pass as :meth:`BabyAILevel.generate` compacts envs; each pass reads on the
 host whether a pair is left, and matches the new descriptors of those pairs
-only.  A lane still unmatched after 24 redraws keeps its 24th draw, as in
-the JAX package, which still calls the level valid.
+only.  A CUDA tensor takes one launch of ``ops/descs.py``'s kernel instead,
+bit for bit the same draws.  A lane still unmatched after 24 redraws keeps
+its 24th draw, as in the JAX package, which still calls the level valid.
 
 Tracing (``utils/trace.py``) sees the locked room and its key as the span
 ``levelgen.layout``, :meth:`LevelGen._rand_objs` as ``levelgen.descs`` and
 the instruction's shape, clause kinds and validity checks as
-``levelgen.instr``; the host counters ``levelgen.desc_passes`` (the first
-draw and each redraw pass) and ``levelgen.desc_redraws`` (the (env, lane)
-pairs redrawn) count the descriptor loop's work.
+``levelgen.instr``; the counters ``levelgen.desc_passes`` (the first draw
+and each redraw pass: 1 + the most redraws of any lane) and
+``levelgen.desc_redraws`` (the (env, lane) pairs redrawn, summed over the
+passes) count the descriptor loop's work, host ints on the plain loop and
+device tensors, summed when read, on the kernel.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid_ops as G
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.sampling import SORTED_COLOR_IDS
+from minigrid_tpu_torch.ops import descs as descs_op
 from minigrid_tpu_torch.utils import trace
 
 _DOOR = C.OBJECT_TO_IDX["door"]
@@ -44,6 +49,18 @@ _ACTION_IDS = {"goto": V.K_GOTO, "pickup": V.K_PICKUP, "open": V.K_OPEN,
 # a descriptor lane redraws at most this many times
 DESC_FUEL = 24
 _KEY_LOCAL = V.OBJ_TYPES.index("key") + 1
+
+
+def count_desc_draws(redraws: torch.Tensor) -> None:
+    """The plain loop's counters from a call's redraws int32[B, 8]: a pass
+    redraws every lane still unmatched, so ``levelgen.desc_passes`` is 1 +
+    the most redraws of any lane and ``levelgen.desc_redraws`` their sum.
+    Device tensors, summed when read; nothing is computed while tracing is
+    off."""
+    trace.count("levelgen.desc_passes", 1)
+    if redraws.numel() and trace.on():
+        trace.count("levelgen.desc_passes", redraws.max())
+    trace.count("levelgen.desc_redraws", redraws)
 
 
 class LevelGen(BabyAILevel):
@@ -115,7 +132,22 @@ class LevelGen(BabyAILevel):
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The 8 descriptors of each env's instruction: (d1 int32[B, 4, 3],
         d2 int32[B, 4, 3], redraws int32[B, 8] per lane, d1's lanes first).
-        ``kinds`` int32[B, 4] are the clause kinds."""
+        ``kinds`` int32[B, 4] are the clause kinds.  A CPU tensor takes the
+        plain loop, any other device the kernel (or raises)."""
+        if key_d1.device.type == "cpu":
+            return self._rand_objs_plain(key_d1, key_d2, b, params, locked_rect,
+                                         has_locked, kinds)
+        descs, redraws = descs_op.draw(key_d1, key_d2, b, kinds, locked_rect, has_locked,
+                                       self.room_size, self.locations, self.implicit_unlock)
+        count_desc_draws(redraws)
+        k = descs_op.CLAUSES
+        return descs[:, :k], descs[:, k:], redraws
+
+    def _rand_objs_plain(self, key_d1: torch.Tensor, key_d2: torch.Tensor, b: dict,
+                         params, locked_rect: torch.Tensor, has_locked: torch.Tensor,
+                         kinds: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`_rand_objs` as masked eager passes with a host read each."""
         dev = key_d1.device
         n, k = kinds.shape
         lanes = torch.arange(k, device=dev)

@@ -69,6 +69,7 @@ constexpr int kColors = 10;
 constexpr int kKinds = 3;
 constexpr int kEmpty = 1;  // minigrid_tpu_torch/core/constants.py OBJECT_TO_IDX["empty"]
 constexpr unsigned kFull = 0xFFFFFFFFu;
+using threefry_hash::randint;
 
 constexpr int kAllUnique = 1;
 constexpr int kDrawI = 2;
@@ -97,16 +98,6 @@ struct Args {
   int32_t sorted_colors[kColors];  // core/sampling.py SORTED_COLOR_IDS
   int32_t kind_ids[kKinds];        // key, ball, box
 };
-
-// core/rng.py::randint from its two words: unsigned span and multiplier
-// arithmetic with uint32 wraparound, span 1 where hi <= lo.
-__device__ __forceinline__ int randint(uint32_t higher, uint32_t lower, int lo, int hi) {
-  const uint32_t span = hi <= lo ? 1u : static_cast<uint32_t>(hi) - static_cast<uint32_t>(lo);
-  uint32_t mult = 65536u % span;
-  mult = (mult * mult) % span;
-  const uint32_t off = ((higher % span) * mult + lower % span) % span;
-  return static_cast<int>(static_cast<uint32_t>(lo) + off);
-}
 
 // The rank of a color id among the sorted names, 0 where none matches.
 __device__ __forceinline__ int color_rank(const Args& a, int color) {

@@ -1,7 +1,8 @@
 // The Threefry-2x32 hash on the device, shared by the kernels that draw
-// (threefry.cu, distractors.cu, fused_step.cu):
+// (threefry.cu, distractors.cu, descs.cu, fused_step.cu):
 // minigrid_tpu_torch/core/rng.py::threefry2x32 of the counter pair (0, c)
-// under one key, 20 rounds in registers.
+// under one key, 20 rounds in registers; and core/rng.py::randint from its
+// two words (distractors.cu, descs.cu).
 
 #pragma once
 
@@ -41,6 +42,16 @@ __device__ __forceinline__ void hash(uint32_t k0, uint32_t k1, uint32_t c, uint3
   x0 += k2; x1 += k0 + 5u;
   y0 = x0;
   y1 = x1;
+}
+
+// core/rng.py::randint from its two words: unsigned span and multiplier
+// arithmetic with uint32 wraparound, span 1 where hi <= lo.
+__device__ __forceinline__ int randint(uint32_t higher, uint32_t lower, int lo, int hi) {
+  const uint32_t span = hi <= lo ? 1u : static_cast<uint32_t>(hi) - static_cast<uint32_t>(lo);
+  uint32_t mult = 65536u % span;
+  mult = (mult * mult) % span;
+  const uint32_t off = ((higher % span) * mult + lower % span) % span;
+  return static_cast<int>(static_cast<uint32_t>(lo) + off);
 }
 
 }  // namespace threefry_hash

@@ -12,8 +12,10 @@ Tracing is on while :func:`enable` is in force, or while a torch profiler
 records (``torch.profiler.profile``, ``torch.autograd.profiler.profile`` or
 ``emit_nvtx``: each sets ``torch.autograd.profiler._is_profiler_enabled``).
 Otherwise it is off, which is the default: :func:`span` then returns one
-shared no-op context after a single flag test and :func:`count` returns at
-once, so nothing is allocated, no clock is read and no device work is issued.
+shared no-op context after a single test of :func:`on` and :func:`count`
+returns at once, so nothing is allocated, no clock is read and no device work
+is issued; a caller whose counter value would cost device work computes it
+only while :func:`on` is true.
 
 While tracing is on, a span records per name the number of calls, the total
 host seconds (``time.perf_counter``), the self seconds (the total less the
@@ -104,10 +106,16 @@ class _Span:
         return False
 
 
+def on() -> bool:
+    """Whether tracing is on now: a counter whose value costs device work is
+    computed only while it is."""
+    return _enabled or _profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A context that records ``name``'s host seconds while tracing is on,
     and the shared no-op context while it is off."""
-    if not _enabled and not _profiler._is_profiler_enabled:
+    if not on():
         return _OFF
     return _Span(name)
 
@@ -115,7 +123,7 @@ def span(name: str):
 def count(name: str, value) -> None:
     """Add ``value`` (a host int, or a device tensor summed when the report
     reads it) to the counter ``name`` while tracing is on."""
-    if not _enabled and not _profiler._is_profiler_enabled:
+    if not on():
         return
     if isinstance(value, torch.Tensor):
         pending = _pending.setdefault(name, [])

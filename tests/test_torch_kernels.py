@@ -21,10 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import minigrid_tpu_torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import rng
-from minigrid_tpu_torch.ops import _build, distractors, fused_step, obs_gather, threefry
+from minigrid_tpu_torch.ops import _build, descs, distractors, fused_step, obs_gather, threefry
 from minigrid_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -121,7 +122,8 @@ def test_library_path_follows_source_content(tmp_path, monkeypatch):
 def test_every_kernel_source_is_built():
     """Each csrc/*.cu has a wrapper whose ``Kernel`` loads it by name."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == sorted(KERNELS) == ["distractors", "fused_step", "obs_gather", "threefry"]
+    assert sources == sorted(KERNELS) == ["descs", "distractors", "fused_step", "obs_gather",
+                                          "threefry"]
 
 
 def _fused_inputs(env_id: str, n: int, device, seed: int = 0, walk: int = 12,
@@ -242,6 +244,7 @@ def test_wrappers_size_the_tile_as_the_kernels_do(w, h, v):
     assert fused_step.fused_tile_bytes(w, h, v) == _tile_bytes_in_source("fused_step")(w * h, v)
     assert obs_gather.gather_tile_bytes(w, h) == _tile_bytes_in_source("obs_gather")(w * h, v)
     assert distractors.tile_bytes(w, h) == _tile_bytes_in_source("distractors")(w * h, v)
+    assert descs.tile_bytes(w, h) == _tile_bytes_in_source("descs")(w * h, v)
     assert fused_step.fused_tile_bytes(8, 8, 7) == 8112
 
 
@@ -273,7 +276,7 @@ def test_fused_wrapper_refuses_a_tile_over_shared_memory():
 # -- the launch seam (ops/_build.py::Kernel) ------------------------------------------
 
 KERNELS = {k.name: k for k in (obs_gather.KERNEL, fused_step.KERNEL, threefry.KERNEL,
-                               distractors.KERNEL)}
+                               distractors.KERNEL, descs.KERNEL)}
 STREAM = 77  # the stand-in card's current stream handle
 
 
@@ -301,6 +304,11 @@ def _call_on_meta(name: str) -> None:
         fused_step.fused_step(*args, spec)
     elif name == "threefry":
         threefry.split(torch.zeros((4, 2), dtype=torch.int64, device="meta"), 2)
+    elif name == "descs":
+        args = _descs_args()
+        descs.draw(**{k: ({f: t.to("meta") for f, t in v.items()} if k == "b" else
+                          v.to("meta") if isinstance(v, torch.Tensor) else v)
+                      for k, v in args.items()})
     else:
         args = _distractor_args()
         distractors.place(**{**args, "b": {k: v.to("meta") for k, v in args["b"].items()},
@@ -743,8 +751,6 @@ def test_threefry_kernel_matches_plain(cuda):
     """``chip_smoke.py`` phase 3's threefry cases: split, bits and fold_in on
     the card bitwise the plain formula on the CPU, each with the launches it
     must make, and the flipped-bit self-check."""
-    import chip_smoke
-
     assert chip_smoke.check_threefry_kernel(cuda) == 0
 
 
@@ -867,8 +873,6 @@ def test_distractors_kernel_matches_plain(cuda):
     """``chip_smoke.py`` phase 3's distractors cases: every argument form of
     the sequential path on the card bitwise the plain loop on the CPU, one
     launch each, and the flipped-bit self-check."""
-    import chip_smoke
-
     assert chip_smoke.check_distractors_kernel(cuda) == 0
 
 
@@ -876,8 +880,6 @@ def test_distractors_kernel_matches_plain(cuda):
 def test_goto_step_is_one_distractors_launch(cuda):
     """A GoTo ``VectorEnv.step`` at B=4096: one distractors launch and the
     20 threefry launches of the refill's other draws."""
-    import chip_smoke
-
     out = chip_smoke.check_goto_hashes(cuda)
     assert out["distractors_per_step"] == [1, 1, 1] and out["per_step"] == [20, 20, 20]
 
@@ -886,10 +888,156 @@ def test_goto_step_is_one_distractors_launch(cuda):
 def test_distractors_kernel_on_goto_and_boss_levels(cuda):
     """Every distractors launch of a B=4096 GoTo and BossLevel reset and
     their 16-level refills, bitwise the plain loop on the CPU."""
-    import chip_smoke
-
     held = chip_smoke.check_distractor_levels(cuda)
     assert 16 in held["BabyAI-GoTo-v0"] and 16 in held["BabyAI-BossLevel-v0"]
+
+
+# -- the descriptor kernel -----------------------------------------------------------
+
+def _descs_inputs(env_id: str, n: int, seed: int) -> tuple:
+    """(env, ``gen_level``'s arguments to ``_rand_objs``) for ``n`` levels
+    of ``env_id`` on the CPU."""
+    env = minigrid_tpu_torch.make(env_id)
+    return env, chip_smoke.descs_inputs(env, rng.split(rng.PRNGKey(seed, "cpu"), n))
+
+
+def _descs_args(n: int = 6, **overrides) -> dict:
+    """BossLevel's arguments to ``descs.draw`` for ``n`` levels, on the CPU."""
+    env, (k1, k2, b, _, rect, locked, kinds) = _descs_inputs("BabyAI-BossLevel-v0", n, 3)
+    args = dict(key_d1=k1, key_d2=k2, b=b, kinds=kinds, locked_rect=rect, has_locked=locked,
+                room_size=env.room_size, locations=True, implicit_unlock=True)
+    return {**args, **overrides}
+
+
+@pytest.mark.parametrize("what,overrides,error", [
+    ("key_d1 int32", lambda a: dict(key_d1=a["key_d1"].int()), TypeError),
+    ("key_d2 [B]", lambda a: dict(key_d2=a["key_d2"][:, 0]), TypeError),
+    ("key_d2 of 5 levels", lambda a: dict(key_d2=a["key_d2"][:5]), TypeError),
+    ("keys a list", lambda a: dict(key_d1=a["key_d1"].tolist()), TypeError),
+    ("grid int64", lambda a: dict(b=_with(a["b"], grid=a["b"]["grid"].long())), TypeError),
+    ("grid [B, W]", lambda a: dict(b=_with(a["b"], grid=a["b"]["grid"][:, 0])), TypeError),
+    ("agent_pos int64", lambda a: dict(b=_with(a["b"], agent_pos=a["b"]["agent_pos"].long())),
+     TypeError),
+    ("agent_dir [B, 1]", lambda a: dict(b=_with(a["b"], agent_dir=a["b"]["agent_dir"][:, None])),
+     TypeError),
+    ("kinds int64", lambda a: dict(kinds=a["kinds"].long()), TypeError),
+    ("kinds of 3 clauses", lambda a: dict(kinds=a["kinds"][:, :3]), TypeError),
+    ("locked_rect int32", lambda a: dict(locked_rect=a["locked_rect"].int()), TypeError),
+    ("locked_rect of another grid", lambda a: dict(locked_rect=a["locked_rect"][:, 1:]),
+     TypeError),
+    ("has_locked int32", lambda a: dict(has_locked=a["has_locked"].int()), TypeError),
+    ("room_size 1", lambda a: dict(room_size=1), ValueError),
+    ("room_size a bool", lambda a: dict(room_size=True), ValueError),
+    ("room_size a tensor", lambda a: dict(room_size=torch.tensor(8)), ValueError),
+    ("locations an int", lambda a: dict(locations=1), TypeError),
+    ("implicit_unlock None", lambda a: dict(implicit_unlock=None), TypeError),
+])
+def test_descs_wrapper_rejects_what_it_does_not_take(what, overrides, error):
+    """Forms and dtypes the kernel does not take are refused before the
+    device is looked at, so on the CPU too; what it takes reaches the
+    device check, which refuses the CPU."""
+    args = _descs_args()
+    with pytest.raises(error):
+        descs.draw(**{**args, **overrides(args)})
+    with pytest.raises(ValueError, match="no descs kernel for device cpu"):
+        descs.draw(**args)
+
+
+def test_descs_wrapper_refuses_a_grid_over_shared_memory():
+    """A grid of more cells than a block's shared memory holds is refused
+    before the device is looked at."""
+    args = _descs_args(2)
+    assert descs.tile_bytes(240, 250) > _build.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        descs.draw(**{**args, "b": _with(args["b"], grid=torch.zeros((2, 240, 250),
+                                                                     dtype=torch.int32)),
+                      "locked_rect": torch.zeros((2, 240, 250), dtype=torch.bool)})
+
+
+@pytest.mark.parametrize("env_id", ["BabyAI-BossLevel-v0", "BabyAI-SynthS5R2-v0"])
+def test_descs_cpu_tensors_take_the_plain_loop_and_do_not_count(env_id, monkeypatch):
+    """On the CPU ``_rand_objs`` is the plain loop: the wrapper is never
+    called and nothing counts a launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the descs kernel")
+
+    monkeypatch.setattr(descs, "draw", refuse)
+    env, inputs = _descs_inputs(env_id, 8, 5)
+    before = trace.launches("descs")
+    got = env._rand_objs(*inputs)
+    want = env._rand_objs_plain(*inputs)
+    assert trace.launches("descs") == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("env_id", chip_smoke.LEVELGEN_IDS)
+def test_desc_counters_are_the_redraws_max_and_sum(env_id):
+    """On the plain loop, over three seeds: the host counters
+    ``levelgen.desc_passes`` and ``levelgen.desc_redraws`` are 1 + the most
+    redraws of any lane and their sum, the identity the kernel path counts
+    by (``levelgen.count_desc_draws``, which reads the same from the
+    redraws, and records nothing while tracing is off)."""
+    from minigrid_tpu_torch.babyai.levelgen import count_desc_draws
+
+    trace.reset()
+    try:
+        for seed in range(3):
+            env, inputs = _descs_inputs(env_id, 16, 40 + seed)
+            trace.enable()
+            _, _, redraws = env._rand_objs(*inputs)
+            counters = trace.report()["counters"]
+            trace.reset()
+            assert counters["levelgen.desc_passes"] == 1 + int(redraws.max())
+            assert counters.get("levelgen.desc_redraws", 0) == int(redraws.sum())
+            count_desc_draws(redraws)
+            got = trace.report()["counters"]
+            assert {k: got.get(k, 0) for k in counters} == {k: counters.get(k, 0) for k in got}
+            trace.reset()
+            trace.disable()
+            count_desc_draws(redraws)
+            assert "levelgen.desc_passes" not in trace.report()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+def test_descs_kernel_constants_are_the_port_tables():
+    """csrc/descs.cu keeps its own copy of the fuel, the clause kinds, the
+    flags and the color and type tables; they must be the port's."""
+    from minigrid_tpu_torch.babyai import levelgen
+    from minigrid_tpu_torch.babyai import verifier as V
+    from minigrid_tpu_torch.core.sampling import SORTED_COLOR_IDS
+
+    consts = _constants("descs")
+    want = {"kLanes": descs.LANES, "kClauses": descs.CLAUSES, "kFuel": levelgen.DESC_FUEL,
+            "kGoTo": V.K_GOTO, "kOpen": V.K_OPEN, "kPutNext": V.K_PUTNEXT,
+            "kLocations": descs.LOCATIONS, "kImplicitUnlock": descs.IMPLICIT_UNLOCK}
+    assert {k: consts.get(k) for k in want} == want
+    src = (_build.CSRC / "descs.cu").read_text()
+    tables = {m[0]: [int(v) for v in m[1].split(",")]
+              for m in re.findall(r"__constant__ int (k\w+)\[\d+\] = \{([^}]*)\};", src)}
+    assert tables == {"kSortedColors": SORTED_COLOR_IDS.tolist(),
+                      "kDescTypes": V.DESC_TYPE_IDS.tolist()}
+
+
+@pytest.mark.gpu
+def test_descs_kernel_matches_plain(cuda):
+    """``chip_smoke.py`` phase 3's descriptor cases: every LevelGen preset
+    at 16 levels on two seeds and at 4,097, BossLevel at 1 level, without
+    objects (every lane spends its fuel) and with a column-major grid, on
+    the card bitwise the plain loop on the CPU, one launch each, and the
+    flipped-bit self-check."""
+    assert chip_smoke.check_descs_kernel(cuda) == 0
+
+
+@pytest.mark.gpu
+def test_boss_step_is_one_descs_launch(cuda):
+    """A BossLevel ``VectorEnv.step`` at B=4096: one descriptor launch and
+    39 threefry launches, and every descriptor call of its reset and three
+    refills bitwise the plain loop on the CPU."""
+    out = chip_smoke.check_boss_descs(cuda)
+    assert out["per_step"] == [(39, 1)] * 3 and 16 in out["levels"]
 
 
 # -- the learner on the card ----------------------------------------------------------
@@ -901,7 +1049,5 @@ def test_learner_on_the_card_matches_the_cpu(cuda, kind):
     RecurrentPPO update (MemoryS7) or ``bc_train`` run on the card and on the
     CPU from one key, float32 networks, TF32 off: the rollouts equal, values,
     metrics and parameters within the CPU tests' tolerances."""
-    import chip_smoke
-
     errs = chip_smoke.learner_card_matches_cpu(cuda, (kind,))[kind]
     assert errs["param"] < 0.1 * 1e-3

@@ -81,6 +81,18 @@ def test_off_records_allocates_and_reads_nothing(monkeypatch):
     assert rep["spans"] == {} and _counters() == {}
 
 
+def test_on_follows_enable_and_the_profiler():
+    """``on`` is what ``span`` and ``count`` test: off by default, on under
+    ``enable`` or a recording profiler."""
+    assert trace.on() is False
+    trace.enable()
+    assert trace.on() is True
+    trace.disable()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert trace.on()
+    assert trace.on() is False
+
+
 def test_spans_nest_and_self_time_is_duration_less_children():
     trace.enable()
     with trace.span("outer"):
@@ -176,8 +188,8 @@ def test_report_lists_every_kernel_from_import_and_after_reset():
 
 
 @pytest.mark.parametrize("name,counter", [
-    ("distractors", "roomgrid.distractors_kernel"), ("fused_step", None),
-    ("obs_gather", None), ("threefry", "rng.threefry")])
+    ("descs", "levelgen.descs_kernel"), ("distractors", "roomgrid.distractors_kernel"),
+    ("fused_step", None), ("obs_gather", None), ("threefry", "rng.threefry")])
 def test_a_launch_adds_one_and_its_traced_counter_only_while_tracing(name, counter,
                                                                      stub_card):
     kernel, calls = KERNELS[name], []
