@@ -5,6 +5,13 @@ the target ball blue (the first color name), blocking balls brown, key boxes
 cyan; the door colors are a random permutation of all ten.  A hidden key lives
 in the ``box_contains`` plane under its box, so toggling the box reveals it
 through ``base_step``.  Picking up the blue ball succeeds.
+
+Tracing (``utils/trace.py``) sees ``ObstructedMaze_Full.generate``'s three
+stages as the spans ``obstructedmaze.rooms`` (the rooms and the palette),
+``obstructedmaze.doors`` (the door loop with its blocking balls and boxed
+keys) and ``obstructedmaze.target`` (the ball to find and the agent), and
+counts the boxed keys that found no free cell as
+``obstructedmaze.keys_missing``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from minigrid_tpu_torch.core.state import (
     resolve_device,
 )
 from minigrid_tpu_torch.envs.unlockpickup import picked_target
+from minigrid_tpu_torch.utils import trace
 
 _BALL = C.OBJECT_TO_IDX["ball"]
 _KEY = C.OBJECT_TO_IDX["key"]
@@ -66,6 +74,9 @@ class ObstructedMazeEnv(RoomGridEnv):
             if key_in_box:
                 b, pos, ok = self.place_in_room(b, k_key, params, i, j,
                                                 (_BOX, _CYAN, 0))
+                if trace.on():
+                    # a key with no cell leaves its door shut for good
+                    trace.count("obstructedmaze.keys_missing", ~ok)
                 b = dict(b)
                 b["box_contains"] = G.put_if(b["box_contains"], pos[:, 0], pos[:, 1],
                                              key_triple, ok)
@@ -144,28 +155,32 @@ class ObstructedMaze_Full(ObstructedMazeEnv):
         keys = keys.to(resolve_device(device))
         dev = keys.device
         k = rng.split(keys, 4 + 3 * self.num_quarters).unbind(1)
-        b = self.init_rooms(k[0], params)
+        with trace.span("obstructedmaze.rooms"):
+            b = self.init_rooms(k[0], params)
 
-        side_rooms = [(2, 1), (1, 2), (0, 1), (1, 0)][: self.num_quarters]
-        for i, side_room in enumerate(side_rooms):
-            b, _, _ = self.add_door(b, k[1 + 3 * i], 1, 1, i,
-                                    color=b["door_colors"][:, i], locked=False)
-            for n, d in enumerate((-1, 1)):
-                # the door side is (i + d) % 4, its color (i + d) % 10 of the
-                # palette: the reference indexes the ten colors with i + d
-                b, _, _ = self.add_door_om(
-                    b, k[2 + 3 * i + n], params, side_room[0], side_room[1],
-                    (i + d) % 4, color=b["door_colors"][:, (i + d) % 10],
-                    locked=True, key_in_box=self.key_in_box, blocked=self.blocked)
+        with trace.span("obstructedmaze.doors"):
+            side_rooms = [(2, 1), (1, 2), (0, 1), (1, 0)][: self.num_quarters]
+            for i, side_room in enumerate(side_rooms):
+                b, _, _ = self.add_door(b, k[1 + 3 * i], 1, 1, i,
+                                        color=b["door_colors"][:, i], locked=False)
+                for n, d in enumerate((-1, 1)):
+                    # the door side is (i + d) % 4, its color (i + d) % 10 of
+                    # the palette: the reference indexes the ten colors with
+                    # i + d
+                    b, _, _ = self.add_door_om(
+                        b, k[2 + 3 * i + n], params, side_room[0], side_room[1],
+                        (i + d) % 4, color=b["door_colors"][:, (i + d) % 10],
+                        locked=True, key_in_box=self.key_in_box, blocked=self.blocked)
 
-        corners = G.const([(2, 0), (2, 2), (0, 2), (0, 0)][: self.num_quarters],
-                          dev, torch.int32)
-        pick = rng.randint(k[-3], (), 0, corners.shape[0])
-        ball_room = G.take_row(corners.expand(pick.shape[0], -1, -1), pick)
-        b, _, _ = self.add_object(b, k[-2], params, ball_room[:, 0], ball_room[:, 1],
-                                  kind="ball", color=_BLUE)
-        b = self.place_agent_in_room(b, rng.fold_in(k[-2], 7), params,
-                                     self.agent_room[0], self.agent_room[1])
+        with trace.span("obstructedmaze.target"):
+            corners = G.const([(2, 0), (2, 2), (0, 2), (0, 0)][: self.num_quarters],
+                              dev, torch.int32)
+            pick = rng.randint(k[-3], (), 0, corners.shape[0])
+            ball_room = G.take_row(corners.expand(pick.shape[0], -1, -1), pick)
+            b, _, _ = self.add_object(b, k[-2], params, ball_room[:, 0], ball_room[:, 1],
+                                      kind="ball", color=_BLUE)
+            b = self.place_agent_in_room(b, rng.fold_in(k[-2], 7), params,
+                                         self.agent_room[0], self.agent_room[1])
         return self.finish(b, k[-1])
 
 

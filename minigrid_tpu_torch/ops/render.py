@@ -12,6 +12,9 @@ from the ``[NUM_VARIANTS * NUM_CODES, T*T*3]`` atlas and one permute:
 Frames are row-major ``[y, x]`` like the reference's, and the first axis
 within a tile is y.  The gather is ``index_select``: the JAX package's is an
 XLA gather too, not a Pallas kernel.
+
+Tracing (``utils/trace.py``) sees :func:`pov_render_batch` as the span
+``render.pov`` and counts its frames as ``render.frames``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.obs import gen_obs_grid_batch, view_world_coords
 from minigrid_tpu_torch.core.state import EnvParams, EnvState, resolve_device
 from minigrid_tpu_torch.utils import rendering as R
+from minigrid_tpu_torch.utils import trace
 
 NUM_CODES = C.NUM_OBJECT_TYPES * C.NUM_COLORS * 3  # 34 * 11 * 3
 NUM_VARIANTS = 10  # (plain | highlight) x (none | 4 agent dirs)
@@ -177,7 +181,9 @@ def pov_render_batch(states: EnvState, params: EnvParams, atlas: torch.Tensor,
     view with invisible cells blanked, the agent at (V//2, V-1) facing up.
     uint8[B, V*T, V*T, 3], or uint8[B, 3, V*T, V*T] with
     ``channels_first``; contiguous either way."""
-    return tile_frames(atlas, pov_indices(states, params), channels_first)
+    with trace.span("render.pov"):
+        trace.count("render.frames", states.agent_dir.shape[0])
+        return tile_frames(atlas, pov_indices(states, params), channels_first)
 
 
 def pov_render(states: EnvState, params: EnvParams,
