@@ -7,10 +7,12 @@ the world coordinate is
 
     world = agent_pos + f_vec * (V-1-vj) + r_vec * (vi - V//2)
 
-with out-of-bounds cells reading as grey walls.  On CUDA tensors the gather
-is the hand-written kernel of :mod:`minigrid_tpu_torch.ops.obs_gather`; on
-CPU tensors it is that module's plain version.  Occlusion, overlay and encode
-are plain torch on both.
+with out-of-bounds cells reading as grey walls.  On CUDA tensors the whole
+observation, occlusion, overlay and encode included, is one launch of the
+hand-written kernel of :mod:`minigrid_tpu_torch.ops.obs_gather`; on CPU
+tensors it is ``observe_grid_plain``/``observe_image_plain``: that module's
+plain gather, then ``process_vis``, the overlay and ``encode_view`` in plain
+torch.
 """
 
 from __future__ import annotations
@@ -131,20 +133,21 @@ def process_vis(cells: torch.Tensor, view_size: int) -> torch.Tensor:
     return ((packed[:, None, :] >> weights) & 1) > 0
 
 
-def gen_obs_grid_batch(
-    states: EnvState, params: EnvParams
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(packed view cells int32[B, V, V] with the carried-object overlay,
-    vis_mask bool[B, V, V])."""
-    v = params.agent_view_size
-    cells = gather_view(states.grid, states.agent_pos, states.agent_dir, v)
-    if params.see_through_walls:
+def observe_grid_plain(grid, agent_pos, agent_dir, carrying, view_size: int,
+                       see_through: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(packed view cells int32[B, V, V] with the carried object uint8[B, 3]
+    at (V//2, V-1), vis_mask bool[B, V, V]): the window, its occlusion (none
+    with ``see_through``), then the overlay, in plain torch around
+    :func:`gather_view`."""
+    v = view_size
+    cells = gather_view(grid, agent_pos, agent_dir, v)
+    if see_through:
         vis_mask = torch.ones(cells.shape, dtype=torch.bool, device=cells.device)
     else:
         vis_mask = process_vis(cells, v)
     # The agent sees what it carries; empty hands encode as None.  The
     # window is a fresh tensor, so the overlay writes it in place.
-    cells[:, v // 2, v - 1] = pack_cells(states.carrying)
+    cells[:, v // 2, v - 1] = pack_cells(carrying)
     return cells, vis_mask
 
 
@@ -154,13 +157,36 @@ def encode_view(cells: torch.Tensor, vis_mask: torch.Tensor) -> torch.Tensor:
     return unpack_cells(torch.where(vis_mask, cells, torch.zeros_like(cells)))
 
 
+def observe_image_plain(grid, agent_pos, agent_dir, carrying, view_size: int,
+                        see_through: bool) -> torch.Tensor:
+    """The encoded image uint8[B, V, V, 3] of :func:`observe_grid_plain`."""
+    return encode_view(*observe_grid_plain(grid, agent_pos, agent_dir, carrying, view_size,
+                                           see_through))
+
+
+def _observe_args(states: EnvState, params: EnvParams) -> tuple:
+    return (states.grid, states.agent_pos, states.agent_dir, states.carrying.contiguous(),
+            params.agent_view_size, params.see_through_walls)
+
+
+def gen_obs_grid_batch(
+    states: EnvState, params: EnvParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(packed view cells int32[B, V, V] with the carried-object overlay,
+    vis_mask bool[B, V, V])."""
+    from minigrid_tpu_torch.ops import obs_gather
+
+    return obs_gather.observe_grid(*_observe_args(states, params))
+
+
 def gen_obs_batch(states: EnvState, params: EnvParams) -> dict:
     """The observation dict of every env: image uint8[B, V, V, 3], direction
     int32[B], mission int32[B, M] (M = 4 for the MiniGrid families, 43 for
     a BabyAI instruction)."""
-    cells, vis_mask = gen_obs_grid_batch(states, params)
+    from minigrid_tpu_torch.ops import obs_gather
+
     return {
-        "image": encode_view(cells, vis_mask),
+        "image": obs_gather.observe_image(*_observe_args(states, params)),
         "direction": states.agent_dir,
         "mission": states.mission,
     }

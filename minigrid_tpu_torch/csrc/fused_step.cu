@@ -93,14 +93,12 @@ namespace {
 using namespace view_tile;
 
 // minigrid_tpu_torch/core/constants.py (tests/test_torch_kernels.py holds
-// these against the table; kWall and kGrey are in view_tile.cuh)
+// these against the table; kWall, kDoor, kGrey and kOpen are in view_tile.cuh)
 constexpr int kEmpty = 1;
-constexpr int kDoor = 4;
 constexpr int kKey = 21;
 constexpr int kBall = 22;
 constexpr int kGoal = 31;
 constexpr int kLava = 32;
-constexpr int kOpen = 0;
 constexpr int kLocked = 2;
 constexpr int kGreen = 2;
 constexpr int kYellow = 5;
@@ -162,27 +160,6 @@ struct Args {
   int vec;  // every tensor 16-byte aligned: the tile copies move 16 bytes
 };
 
-// The reference's left-to-right sweep of one row (core/obs.py
-// process_vis): for i = 0 .. V-2, a reached transparent cell i reaches
-// cell i+1 and marks cells i and i+1 of the row ahead.  Without the loop:
-// the carry of (m & see) + see runs through each run of transparent cells
-// above a reached one and stops on the first opaque cell, which it reaches
-// too.  Returns the cells reached; `ahead` gains the cells marked.
-__device__ __forceinline__ uint32_t sweep_up(uint32_t m, uint32_t see, int V,
-                                             uint32_t& ahead) {
-  const uint32_t row = (1u << V) - 1u;
-  m = (m | (((m & see) + see) ^ see)) & row;
-  const uint32_t fired = m & see & (row >> 1);  // cells 0 .. V-2 that passed it on
-  ahead |= fired | (fired << 1);
-  return m;
-}
-
-// The row's V bits in reverse order: the right-to-left sweep is the
-// left-to-right one on the reversed row.
-__device__ __forceinline__ uint32_t reverse_row(uint32_t x, int V) {
-  return __brev(x) >> (32 - V);
-}
-
 // A block's tile in shared memory.  Each segment holds kTile rows, so each
 // starts 16-byte aligned.
 struct Tile {
@@ -231,11 +208,6 @@ __device__ __forceinline__ void write_key(const Args& a) {
   a.key_out[0] = k0;
   a.key_out[1] = k1;
   a.t_out[0] = a.t_in[0] + 1;
-}
-
-__device__ __forceinline__ bool transparent(int cell) {
-  const int t = cell & 0xFF;
-  return t != kWall && (t != kDoor || ((cell >> 16) & 0xFF) == kOpen);
 }
 
 // ---- the phases; `nt` is the tile's env count (kTile but for the last) ------
@@ -423,21 +395,12 @@ __device__ __forceinline__ void see_words(const Args& a, const Tile& s, int nt, 
   }
 }
 
-// Env e's visibility words from its transparency words, in place: the
-// reference's two sweeps per row, bottom-up, as the JAX kernel unrolls them.
+// Env e's visibility words from its transparency words, in place
+// (view_tile.cuh occlude_columns).
 template <int kV>
 __device__ __forceinline__ void occlude(const Args& a, const Tile& s, int e) {
   const int V = kV ? kV : a.V;
-  unsigned* col = s.cols + e * V;
-  uint32_t m = 1u << (V / 2);  // the agent's cell
-  for (int j = V - 1; j >= 0; --j) {
-    const uint32_t see = col[j];
-    uint32_t ahead = 0, back = 0;
-    m = sweep_up(m, see, V, ahead);
-    m = reverse_row(sweep_up(reverse_row(m, V), reverse_row(see, V), V, back), V);
-    col[j] = m;
-    m = j > 0 ? ahead | reverse_row(back, V) : 0u;  // reached in the row ahead
-  }
+  occlude_columns(s.cols + e * V, V);
 }
 
 // One thread per (env, view column j): the column's cells again, unseen

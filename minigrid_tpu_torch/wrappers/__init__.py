@@ -25,7 +25,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.grid_ops import pack_word, unpack_cells
-from minigrid_tpu_torch.core.obs import encode_view, gen_obs_grid_batch
+from minigrid_tpu_torch.core.obs import gen_obs_batch
 from minigrid_tpu_torch.core.state import EnvParams, EnvState
 from minigrid_tpu_torch.core.step import NUM_ACTIONS
 
@@ -317,8 +317,7 @@ class ViewSizeWrapper(Wrapper):
     def observation(self, states, params):
         obs = self.env.observation(states, params)
         view_params = dataclasses.replace(params, agent_view_size=self.agent_view_size)
-        cells, vis = gen_obs_grid_batch(states, view_params)
-        return {**obs, "image": encode_view(cells, vis)}
+        return {**obs, "image": gen_obs_batch(states, view_params)["image"]}
 
 
 def _first_goal(states: EnvState) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

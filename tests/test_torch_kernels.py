@@ -192,6 +192,8 @@ def test_fused_kernel_constants_are_the_tables():
                     [_build.CSRC / "fused_step.cu", *sorted(_build.CSRC.glob("*.cuh"))])
     consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     T, S, K = C.OBJECT_TO_IDX, C.STATE_TO_IDX, C.COLOR_TO_IDX
+    # view_tile.cuh's ``transparent`` is SEE_BEHIND as "every type but the wall"
+    assert np.flatnonzero(~C.SEE_BEHIND).tolist() == [T["wall"]]
     want = {"kEmpty": T["empty"], "kWall": T["wall"], "kDoor": T["door"],
             "kKey": T["key"], "kBall": T["ball"], "kGoal": T["goal"],
             "kLava": T["lava"], "kOpen": S["open"], "kLocked": S["locked"],
@@ -210,6 +212,9 @@ def _constants(name: str) -> dict:
 def test_wrappers_know_the_kernels_tiles():
     assert _constants("fused_step")["kTile"] == fused_step.TILE
     assert _constants("obs_gather")["kTile"] == obs_gather.TILE
+    consts = _constants("obs_gather")
+    assert [consts[k] for k in ("kWindow", "kImage", "kGrid", "kMaxView")] == [
+        obs_gather.WINDOW, obs_gather.IMAGE, obs_gather.GRID, obs_gather.MAX_VIEW]
     assert _constants("fused_step")["kAgentWidth"] == fused_step.A_WIDTH
     consts = _constants("distractors")
     assert (consts["kWarps"], consts["kCombos"], consts["kEmpty"]) == (
@@ -230,11 +235,12 @@ def test_kernel_ab_phase_lines_are_in_the_sources():
 
 
 def _tile_bytes_in_source(name: str):
-    """The C expression of ``tile_bytes(WH[, V])`` in csrc/<name>.cu, as a
-    Python function of (WH, V)."""
+    """The C expression of ``tile_bytes(WH[, V[, mode]])`` in csrc/<name>.cu,
+    as a Python function of (WH, V, mode)."""
     src = (_build.CSRC / f"{name}.cu").read_text()
     body = re.search(r"int tile_bytes\([^)]*\) \{\s*return (.*?);", src, re.S)[1]
-    return lambda wh, v: eval(body, {}, {**_constants(name), "WH": wh, "V": v})  # noqa: S307
+    return lambda wh, v, mode=0: eval(  # noqa: S307
+        body, {}, {**_constants(name), "WH": wh, "V": v, "mode": mode})
 
 
 @pytest.mark.parametrize("w,h,v", [(8, 8, 7), (5, 5, 3), (16, 16, 11), (40, 40, 7),
@@ -246,6 +252,19 @@ def test_wrappers_size_the_tile_as_the_kernels_do(w, h, v):
     assert distractors.tile_bytes(w, h) == _tile_bytes_in_source("distractors")(w * h, v)
     assert descs.tile_bytes(w, h) == _tile_bytes_in_source("descs")(w * h, v)
     assert fused_step.fused_tile_bytes(8, 8, 7) == 8112
+
+
+@pytest.mark.parametrize("mode", [obs_gather.WINDOW, obs_gather.IMAGE, obs_gather.GRID])
+@pytest.mark.parametrize("w,h,v", [(8, 8, 7), (16, 16, 7), (25, 25, 31), (9, 6, 3)])
+def test_gather_tile_bytes_counts_each_mode_as_the_kernel_does(mode, w, h, v):
+    """The observation modes stage the carried triples and the view's
+    column words and output beside the window's tile."""
+    got = obs_gather.gather_tile_bytes(w, h, v, mode)
+    assert got == _tile_bytes_in_source("obs_gather")(w * h, v, mode)
+    extra = {obs_gather.WINDOW: 0, obs_gather.IMAGE: 3 * v * v, obs_gather.GRID: 5 * v * v}[mode]
+    window = obs_gather.gather_tile_bytes(w, h)
+    assert got == window + (obs_gather.TILE * (4 * v + extra + 3) if mode else 0)
+    assert obs_gather.gather_tile_bytes(8, 8, 7, obs_gather.IMAGE) == 8576 + 5696
 
 
 def test_fused_wrapper_refuses_a_tile_over_shared_memory():
@@ -349,6 +368,148 @@ def test_kernel_binds_its_entry_with_the_stream_last():
     Lib.distractors_args_size = staticmethod(lambda: 4)
     with pytest.raises(RuntimeError, match="Args is 4 bytes"):
         distractors.KERNEL.bind(lib)
+
+
+# -- the observation modes (ops/obs_gather.py) -------------------------------------
+
+def _observe_inputs(r: np.random.Generator, n: int, w: int, h: int, all_poses: bool = False):
+    """grid, agent_pos, agent_dir, carrying on the CPU: walls and doors in
+    all three states over random cells, every carried type in turn (empty
+    hands first), every pose and direction with ``all_poses``."""
+    if all_poses:
+        combos = [(x, y, d) for x in range(w) for y in range(h) for d in range(4)]
+        n = len(combos)
+        pos = np.array([(x, y) for x, y, _ in combos])
+        dirs = np.array([d for *_, d in combos])
+    else:
+        pos = np.stack([r.integers(0, w, n), r.integers(0, h, n)], 1)
+        dirs = r.integers(0, 4, n)
+    grid = random_packed(r, (n, w, h))
+    wall, door = C.OBJECT_TO_IDX["wall"], C.OBJECT_TO_IDX["door"]
+    kind = r.random((n, w, h))
+    grid = np.where(kind < 0.25, wall | C.COLOR_TO_IDX["grey"] << 8, grid)
+    grid = np.where((kind >= 0.25) & (kind < 0.4),
+                    door | r.integers(0, 6, (n, w, h)) << 8 | r.integers(0, 3, (n, w, h)) << 16,
+                    grid).astype(np.int32)
+    types = (np.arange(n) + C.OBJECT_TO_IDX["empty"]) % C.NUM_OBJECT_TYPES
+    carrying = np.stack([types, np.where(types == C.OBJECT_TO_IDX["empty"], 0,
+                                         r.integers(0, 6, n)),
+                         np.zeros(n, dtype=np.int64)], 1).astype(np.uint8)
+    return (torch.from_numpy(grid), torch.from_numpy(pos.astype(np.int32)),
+            torch.from_numpy(dirs.astype(np.int32)), torch.from_numpy(carrying))
+
+
+@pytest.mark.parametrize("see_through", [False, True])
+def test_observe_cpu_tensors_take_the_plain_path_and_do_not_count(see_through):
+    """On the CPU the image and the window with its mask are core/obs.py's
+    plain path; neither the launch nor the occlusion counter counts."""
+    from minigrid_tpu_torch.core import obs
+
+    args = (*_observe_inputs(np.random.default_rng(3), 9, 8, 8), 7, see_through)
+    before = trace.launches("obs_gather")
+    trace.reset()
+    trace.enable()
+    try:
+        image = obs_gather.observe_image(*args)
+        cells, vis = obs_gather.observe_grid(*args)
+        counters = trace.report()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert trace.launches("obs_gather") == before
+    assert obs_gather.OCCLUSION_COUNTER not in counters
+    want_cells, want_vis = obs.observe_grid_plain(*args)
+    assert torch.equal(cells, want_cells) and torch.equal(vis, want_vis)
+    assert torch.equal(image, obs.encode_view(want_cells, want_vis))
+    if see_through:
+        assert bool(vis.all())
+
+
+def _observe_meta(n: int = 4, w: int = 8, h: int = 8) -> dict:
+    meta = torch.device("meta")
+    return dict(grid=torch.zeros((n, w, h), dtype=torch.int32, device=meta),
+                agent_pos=torch.zeros((n, 2), dtype=torch.int32, device=meta),
+                agent_dir=torch.zeros((n,), dtype=torch.int32, device=meta),
+                carrying=torch.zeros((n, 3), dtype=torch.uint8, device=meta),
+                view_size=7, see_through=False)
+
+
+@pytest.mark.parametrize("fn", ["observe_image", "observe_grid"])
+@pytest.mark.parametrize("what,change,error", [
+    ("grid int64", lambda a: dict(grid=a["grid"].long()), TypeError),
+    ("grid [B, W]", lambda a: dict(grid=a["grid"][:, :, 0]), ValueError),
+    ("grid transposed", lambda a: dict(grid=a["grid"].transpose(1, 2)), ValueError),
+    ("agent_pos int64", lambda a: dict(agent_pos=a["agent_pos"].long()), TypeError),
+    ("agent_pos [B, 3]", lambda a: dict(agent_pos=torch.zeros((4, 3), dtype=torch.int32,
+                                                              device="meta")), ValueError),
+    ("agent_dir int64", lambda a: dict(agent_dir=a["agent_dir"].long()), TypeError),
+    ("agent_dir on the CPU", lambda a: dict(agent_dir=torch.zeros(4, dtype=torch.int32)),
+     ValueError),
+    ("carrying int32", lambda a: dict(carrying=a["carrying"].int()), TypeError),
+    ("carrying [B - 1, 3]", lambda a: dict(carrying=a["carrying"][:3]), ValueError),
+    ("carrying [3, B]", lambda a: dict(carrying=a["carrying"].t()), ValueError),
+    ("carrying on the CPU", lambda a: dict(carrying=torch.zeros((4, 3), dtype=torch.uint8)),
+     ValueError),
+    ("view 0", lambda a: dict(view_size=0), ValueError),
+    ("view 32", lambda a: dict(view_size=32), ValueError),
+    ("tile over shared memory", lambda a: dict(
+        grid=torch.zeros((4, 40, 40), dtype=torch.int32, device="meta"), view_size=31),
+     ValueError),
+])
+def test_observe_wrappers_reject_what_they_do_not_take(fn, what, change, error, stub_card):
+    """Forms the kernel does not take are refused before the device is
+    looked at, and so before any launch; what it takes reaches the device
+    check, which refuses the meta device."""
+    def refuse(*args):
+        raise AssertionError("a refused call reached the kernel")
+
+    args = _observe_meta()
+    before = trace.launches("obs_gather")
+    with obs_gather.KERNEL.substituted(refuse):
+        with pytest.raises(error):
+            getattr(obs_gather, fn)(**{**args, **change(args)})
+        with pytest.raises(ValueError, match="no obs_gather kernel for device meta"):
+            getattr(obs_gather, fn)(**args)
+    assert trace.launches("obs_gather") == before
+
+
+@pytest.mark.parametrize("fn,mode,outs", [("observe_image", obs_gather.IMAGE, [(5, 7, 7, 3)]),
+                                          ("observe_grid", obs_gather.GRID,
+                                           [(5, 7, 7), (5, 7, 7)]),
+                                          ("gather_view", obs_gather.WINDOW, [(5, 7, 7)])])
+@pytest.mark.parametrize("see_through", [False, True])
+def test_observe_is_one_launch_that_counts_its_occlusion(fn, mode, outs, see_through,
+                                                         stub_card, monkeypatch):
+    """Each call is one launch in its mode, with the shapes and flag the C
+    entry takes; while tracing, a launch that occluded counts once in
+    ``obs.occlusion_kernel``."""
+    monkeypatch.setattr(obs_gather.KERNEL, "check_device", lambda dev: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)  # the meta device's index
+    calls = []
+    args = _observe_meta(n=5, w=9, h=6)
+    if fn == "gather_view":
+        call = (args["grid"], args["agent_pos"], args["agent_dir"], 7)
+    else:
+        call = tuple({**args, "see_through": see_through}.values())
+    before = trace.launches("obs_gather")
+    trace.reset()
+    trace.enable()
+    try:
+        with obs_gather.KERNEL.substituted(lambda *a: calls.append(a) or 0):
+            got = getattr(obs_gather, fn)(*call)
+        counters = trace.report()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    got = got if isinstance(got, tuple) else (got,)
+    assert [tuple(t.shape) for t in got] == outs
+    assert trace.launches("obs_gather") == before + 1
+    (c,) = calls
+    assert c[6:] == (5, 9, 6, 7, mode, int(see_through and mode != obs_gather.WINDOW), STREAM)
+    assert (c[3] is None) == (mode == obs_gather.WINDOW) and (c[5] is None) == (
+        mode != obs_gather.GRID)
+    occluded = mode != obs_gather.WINDOW and not see_through
+    assert counters.get(obs_gather.OCCLUSION_COUNTER, 0) == int(occluded)
 
 
 # -- on the card ------------------------------------------------------------------
@@ -587,6 +748,60 @@ def test_gather_kernel_on_a_ragged_25x25_batch(cuda):
     want = obs_gather.gather_view_plain(st.grid.cpu(), st.agent_pos.cpu(),
                                         st.agent_dir.cpu(), 7)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("see_through", [False, True])
+@pytest.mark.parametrize("v", [3, 5, 7, 11])
+@pytest.mark.parametrize("w,h", [(8, 8), (16, 16), (22, 22), (25, 25)])
+def test_observe_kernel_matches_the_plain_path(cuda, w, h, v, see_through):
+    """The image and the window with its mask, in one launch each, bitwise
+    core/obs.py's plain path (gen_obs_batch's and gen_obs_grid_batch's on CPU
+    tensors): every pose and direction, then B=1 and a ragged batch; the
+    occlusion counter counts each launch that occluded."""
+    from minigrid_tpu_torch.core import obs
+
+    r = np.random.default_rng(w * 100 + v)
+    for n, all_poses in ((None, True), (1, False), (obs_gather.TILE * 3 + 5, False)):
+        cpu = _observe_inputs(r, n, w, h, all_poses)
+        args = (*(t.to(cuda) for t in cpu), v, see_through)
+        want_cells, want_vis = obs.observe_grid_plain(*cpu, v, see_through)
+        before = trace.launches("obs_gather")
+        trace.reset()
+        trace.enable()
+        try:
+            image = obs_gather.observe_image(*args)
+            assert trace.launches("obs_gather") == before + 1
+            cells, vis = obs_gather.observe_grid(*args)
+            assert trace.launches("obs_gather") == before + 2
+            counters = trace.report()["counters"]
+        finally:
+            trace.disable()
+            trace.reset()
+        torch.cuda.synchronize()
+        assert counters.get(obs_gather.OCCLUSION_COUNTER, 0) == (0 if see_through else 2)
+        assert torch.equal(cells.cpu(), want_cells) and torch.equal(vis.cpu(), want_vis)
+        assert torch.equal(image.cpu(), obs.encode_view(want_cells, want_vis))
+
+
+@pytest.mark.gpu
+def test_observe_kernel_takes_tensors_off_16_byte_alignment(cuda):
+    """Every input one element into its storage: the tile's copies go word
+    by word and byte by byte."""
+    from minigrid_tpu_torch.core import obs
+
+    cpu = _observe_inputs(np.random.default_rng(5), 4097, 8, 8)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        flat[1:] = x.reshape(-1).to(cuda)
+        return flat[1:].view(x.shape)
+
+    want_cells, want_vis = obs.observe_grid_plain(*cpu, 7, False)
+    image = obs_gather.observe_image(*(shifted(t) for t in cpu), 7, False)
+    cells, vis = obs_gather.observe_grid(*(shifted(t) for t in cpu), 7, False)
+    assert torch.equal(cells.cpu(), want_cells) and torch.equal(vis.cpu(), want_vis)
+    assert torch.equal(image.cpu(), obs.encode_view(want_cells, want_vis))
 
 
 @pytest.mark.gpu
