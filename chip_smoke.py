@@ -219,6 +219,7 @@ import time
 
 import torch
 
+from minigrid_tpu_torch.single_env import SingleEnv
 from minigrid_tpu_torch.utils import trace
 
 ENV_ID = "MiniGrid-DoorKey-8x8-v0"
@@ -3062,55 +3063,20 @@ def drive_exact_resets(dev, counters: dict, card: str) -> dict:
     return out
 
 
-class CoreAdapter:
-    """The Gymnasium adapter's functional core, for a machine without
-    gymnasium: ``reset_exact`` (or ``Env.reset`` on the threefry key stream
-    when unseeded) and ``Env.step`` on a batch of one, the outputs read back
-    in one copy (``utils/convert.to_host``), ``hash`` of row 0, and a
+class CoreAdapter(SingleEnv):
+    """The Gymnasium adapter's core for a machine without gymnasium:
+    ``single_env.SingleEnv`` with ``exact_seed``, ``hash`` of row 0 and a
     pickle round trip through ``state_to_numpy``."""
 
     def __init__(self, env_id: str, device):
-        import minigrid_tpu_torch
-        from minigrid_tpu_torch.core import rng
-
-        self.env = minigrid_tpu_torch.make(env_id)
-        self.params = self.env.default_params
-        self.device = torch.device(device)
-        self.num_actions = self.env.num_actions
-        self.key = rng.PRNGKey(0, self.device)
-        self.state = None
-
-    def _host(self, obs: dict, more: tuple = ()) -> tuple:
-        from minigrid_tpu_torch.utils.convert import to_host
-
-        arrays = to_host([v[0] for v in obs.values()] + list(more))
-        out = {k: a for k, a in zip(obs, arrays)}
-        out["mission"] = self.env.mission_text(out["mission"])
-        return out, arrays[len(obs):]
-
-    def reset(self, seed=None):
-        from minigrid_tpu_torch.core import rng
-        from minigrid_tpu_torch.utils.exact import reset_exact
-
-        if seed is not None:
-            obs, self.state = reset_exact(self.env, seed, self.params, self.device)
-            self.key = rng.PRNGKey(seed, self.device)
-        else:
-            self.key, k = rng.split(self.key).unbind(0)
-            obs, self.state = self.env.reset(k[None], self.params, self.device)
-        return self._host(obs)[0], {}
-
-    def step(self, action: int):
-        a = torch.full((1,), int(action), dtype=torch.int32, device=self.device)
-        obs, self.state, r, te, tr, info = self.env.step(self.state, a, self.params)
-        out, (r, te, tr) = self._host(obs, (r, te, tr))
-        return out, float(r[0]), bool(te[0]), bool(tr[0]), dict(info)
+        super().__init__(env_id, exact_seed=True, device=torch.device(device))
+        self.num_actions = self.fenv.num_actions
 
     def hash(self) -> str:
         from minigrid_tpu_torch.core.state import map_fields
         from minigrid_tpu_torch.utils.checkpoint import state_hash
 
-        return state_hash(map_fields(lambda t: t[0], self.state))
+        return state_hash(map_fields(lambda t: t[0], self._state))
 
     def clone(self) -> "CoreAdapter":
         """A copy through pickled host numpy, back on this device."""
@@ -3120,8 +3086,8 @@ class CoreAdapter:
 
         other = object.__new__(CoreAdapter)
         other.__dict__.update(self.__dict__)
-        other.state = state_from_numpy(pickle.loads(pickle.dumps(state_to_numpy(self.state))),
-                                       self.device)
+        other._state = state_from_numpy(pickle.loads(pickle.dumps(state_to_numpy(self._state))),
+                                        self.device)
         return other
 
 
@@ -3228,7 +3194,7 @@ def drive_gym_episodes(dev, counters: dict, card: str, has_gym: bool) -> dict:
             raise AssertionError(f"{what}: launches {card_rec['launches']}, expected {want}")
         env = card_rec["env"]
         clone = pickle.loads(pickle.dumps(env)) if has_gym else env.clone()
-        state = clone._state if has_gym else clone.state
+        state = clone._state
         if clone.device.type != dev.type or state.grid.device.type != dev.type:
             raise AssertionError(f"{what}: the unpickled adapter left the card")
         if clone.hash() != env.hash():

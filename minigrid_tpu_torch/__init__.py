@@ -17,7 +17,7 @@ the learner of ``minigrid_tpu_torch.rl`` (PPO with GAE, recurrent PPO and
 behavior cloning, driven by ``tools/train_ppo.py`` and
 ``tools/train_rnn_ppo.py``), and the reference's own surface: seed-exact
 levels (``utils/exact.py``), the Gymnasium adapter (``gym_compat.py``, ids
-``minigrid_tpu_torch/<id>``) and ``utils/convert.from_reference``; and the
+``minigrid_tpu_torch/<id>``, on ``single_env.py``, its core without gymnasium) and ``utils/convert.from_reference``; and the
 host tools of ``tools/`` (the BFS oracle and its demos, manual control,
 profile, autotune, the battery sweep, the docs and site generators, the
 smoke gate).  Entry points run on CUDA unless the caller passes

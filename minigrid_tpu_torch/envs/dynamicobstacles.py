@@ -12,6 +12,13 @@ Counterpart of ``minigrid_tpu/envs/dynamicobstacles.py``:
 * walking forward into a blocked cell gives reward -1 and ends the episode.
 
 The obstacle positions live in ``extra``, int32[B, n, 2].
+
+Tracing (``utils/trace.py``) sees the step's stream split and obstacle loop
+as the span ``dynamicobstacles.moves`` and the generator's obstacle
+placements as ``dynamicobstacles.place``; it counts the envs whose forward
+step collided as ``dynamicobstacles.collisions`` and the obstacles that
+found no free cell and stayed as ``dynamicobstacles.stuck`` (device
+tensors, summed when read, computed only while tracing is on).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from minigrid_tpu_torch.core.state import (
     resolve_device,
 )
 from minigrid_tpu_torch.core.step import dir_to_vec
+from minigrid_tpu_torch.utils import trace
 
 _BALL = np.asarray([C.OBJECT_TO_IDX["ball"], C.COLOR_TO_IDX["blue"], 0],
                    dtype=np.uint8)
@@ -77,9 +85,10 @@ class DynamicObstaclesEnv(Env):
             agent_dir = rng.randint(k[1], (), 0, 4)
 
         positions = []
-        for i in range(self.n_obstacles):
-            grid, pos, _ = G.place_obj(k[i + 2], grid, _BALL, agent_pos=agent_pos)
-            positions.append(pos)
+        with trace.span("dynamicobstacles.place"):
+            for i in range(self.n_obstacles):
+                grid, pos, _ = G.place_obj(k[i + 2], grid, _BALL, agent_pos=agent_pos)
+                positions.append(pos)
         if positions:
             extra = torch.stack(positions, dim=1)
         else:
@@ -111,23 +120,29 @@ class DynamicObstaclesEnv(Env):
         fwd_type = G.types(G.read_word(state.grid, fx, fy))
         not_clear = (fwd_type != _EMPTY_T) & (fwd_type != _GOAL_T)
 
-        state, key = self.split_rng(state)
-        grid = state.grid
-        xs, ys = G.coords(params.width, params.height, grid.device)
-        new_positions = []
-        for i in range(self.n_obstacles):
-            old = state.extra[:, i]
-            pos, ok = self.propose_move(i, key, grid, old, state.agent_pos, xs, ys)
-            new_pos = torch.where(ok[:, None], pos, old)
-            grid = G.put_if(grid, old[:, 0], old[:, 1], C.EMPTY_TRIPLE, ok)
-            grid = G.put(grid, new_pos[:, 0], new_pos[:, 1], _BALL)
-            new_positions.append(new_pos)
-        if new_positions:
-            state = state.replace(grid=grid, extra=torch.stack(new_positions, dim=1))
+        with trace.span("dynamicobstacles.moves"):
+            state, key = self.split_rng(state)
+            grid = state.grid
+            xs, ys = G.coords(params.width, params.height, grid.device)
+            new_positions, moved = [], []
+            for i in range(self.n_obstacles):
+                old = state.extra[:, i]
+                pos, ok = self.propose_move(i, key, grid, old, state.agent_pos, xs, ys)
+                new_pos = torch.where(ok[:, None], pos, old)
+                grid = G.put_if(grid, old[:, 0], old[:, 1], C.EMPTY_TRIPLE, ok)
+                grid = G.put(grid, new_pos[:, 0], new_pos[:, 1], _BALL)
+                new_positions.append(new_pos)
+                moved.append(ok)
+            if new_positions:
+                state = state.replace(grid=grid, extra=torch.stack(new_positions, dim=1))
 
         state, reward, terminated, truncated = super().step_state(
             state, action, params)
         collided = (action == 2) & not_clear
+        if trace.on():
+            trace.count("dynamicobstacles.collisions", collided)
+            for ok in moved:
+                trace.count_false("dynamicobstacles.stuck", ok)
         reward = torch.where(collided, -1.0, reward)
         terminated = terminated | collided
         state = state.replace(terminated=terminated)

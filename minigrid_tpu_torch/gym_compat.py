@@ -35,41 +35,30 @@ import gymnasium as gym
 from gymnasium import spaces
 
 from minigrid_tpu_torch.core import constants as C
-from minigrid_tpu_torch.core import rng
 from minigrid_tpu_torch.core.env import Env
 from minigrid_tpu_torch.core.grid_ops import unpack_np
 from minigrid_tpu_torch.core.mission import BabyAIMissionSpace, MissionSpace
-from minigrid_tpu_torch.core.state import map_fields, resolve_device
-from minigrid_tpu_torch.registry import make as make_functional
+from minigrid_tpu_torch.core.state import map_fields
 from minigrid_tpu_torch.registry import registered_ids
-from minigrid_tpu_torch.utils.convert import to_host
+from minigrid_tpu_torch.single_env import SingleEnv
 
 NAMESPACE = "minigrid_tpu_torch"
 
 
-class GymEnv(gym.Env):
+class GymEnv(SingleEnv, gym.Env):
     """Stateful Gymnasium adapter over a functional env.
 
-    Holds the current :class:`EnvState` batch of one as the single mutable
-    field; ``reset``/``step`` call the env's batch methods and return numpy
-    observations with the mission detokenized to the reference's string
-    surface (minigrid_env.py:645-651 obs dict)."""
+    :class:`SingleEnv`'s ``reset``/``step`` (the env's batch methods on a
+    batch of one, numpy observations with the mission detokenized to the
+    reference's string surface, minigrid_env.py:645-651 obs dict) under
+    ``gymnasium.Env``, with the spaces, rendering and pickling."""
 
     metadata = {"render_modes": ["rgb_array", "human"], "render_fps": 10}
 
     def __init__(self, env: Env | str, render_mode: str | None = None,
                  exact_seed: bool = False, device=None, **kwargs: Any):
-        self.fenv = make_functional(env, **kwargs) if isinstance(env, str) else env
-        self.params = self.fenv.default_params
+        super().__init__(env, exact_seed=exact_seed, device=device, **kwargs)
         self.render_mode = render_mode
-        self.device = resolve_device(device)
-        # exact_seed: reset(seed=s) replays the reference's np_random call
-        # order on the host (utils/exact.reset_exact), so the episode is the
-        # reference's for seed s.  Off by default: the batch generator is
-        # the production path.
-        self.exact_seed = exact_seed
-        self._state = None
-        self._key = rng.PRNGKey(0, self.device)
         self._window = None
         self._build_spaces()
         self.reward_range = (0.0, 1.0)
@@ -94,29 +83,17 @@ class GymEnv(gym.Env):
 
     # -- gym protocol ---------------------------------------------------------
     def reset(self, *, seed: int | None = None, options: dict | None = None):
-        super().reset(seed=seed)
-        if self.exact_seed and seed is not None:
-            from minigrid_tpu_torch.utils.exact import reset_exact
-
-            obs, self._state = reset_exact(self.fenv, seed, self.params, self.device)
-            self._key = rng.PRNGKey(seed, self.device)
-        else:
-            if seed is not None:
-                self._key = rng.PRNGKey(seed, self.device)
-            self._key, k = rng.split(self._key).unbind(0)
-            obs, self._state = self.fenv.reset(k[None], self.params, self.device)
+        gym.Env.reset(self, seed=seed)
+        out = super().reset(seed=seed, options=options)
         if self.render_mode == "human":
             self.render()
-        return self._host_obs(obs)[0], {}
+        return out
 
     def step(self, action):
-        a = torch.full((1,), int(action), dtype=torch.int32, device=self.device)
-        obs, self._state, reward, term, trunc, info = self.fenv.step(
-            self._state, a, self.params)
-        out, (r, te, tr) = self._host_obs(obs, (reward, term, trunc))
+        out = super().step(action)
         if self.render_mode == "human":
             self.render()
-        return out, float(r[0]), bool(te[0]), bool(tr[0]), dict(info)
+        return out
 
     def render(self):
         frame = self.fenv.get_frame(self._state, self.params, highlight=True)[0]
@@ -137,19 +114,6 @@ class GymEnv(gym.Env):
             self._window = None
 
     # -- helpers ---------------------------------------------------------------
-    def _host_obs(self, obs: dict, more: tuple = ()) -> tuple[dict, list]:
-        """The observation of env 0 as numpy (0-d leaves as np.int64, what
-        Discrete spaces contain; the mission as its string), and the tensors
-        of ``more`` as numpy: everything in one device-to-host copy."""
-        arrays = to_host([v[0] for v in obs.values()] + list(more))
-        out = {}
-        for k, arr in zip(obs, arrays):
-            if k == "mission":
-                out[k] = self.fenv.mission_text(arr)
-            else:
-                out[k] = np.int64(arr) if arr.ndim == 0 else arr
-        return out, arrays[len(obs):]
-
     @property
     def unwrapped(self):
         return self

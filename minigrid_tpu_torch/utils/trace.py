@@ -7,6 +7,7 @@ layer, and how much of a layer's work was useful.
         obs = ...
     trace.count("refill.draws", n)        # a host int
     trace.count("refill.accepted", ok)    # a device tensor, summed when read
+    trace.count_false("obstacles.stuck", ok)  # its False entries, counted when read
 
 Tracing is on while :func:`enable` is in force, or while a torch profiler
 records (``torch.profiler.profile``, ``torch.autograd.profiler.profile`` or
@@ -30,7 +31,9 @@ the device.
 
 A counter adds a host int at once, or keeps a device tensor by reference and
 sums it only when :func:`report` reads it, so counting launches nothing; a
-counted tensor must not be written in place afterwards.  When more than
+counted tensor must not be written in place afterwards.  :func:`count_false`
+counts a bool tensor's False entries the same way: its size at once, less
+its True entries when the report sums them.  When more than
 ``FOLD_AT`` tensors wait under one name they are folded into one (a
 concatenation and a sum, two launches), which bounds what the counter holds.
 
@@ -58,6 +61,7 @@ _enabled = False
 _spans: dict[str, "_Stat"] = {}
 _counts: dict[str, int] = {}
 _pending: dict[str, list[torch.Tensor]] = {}
+_less: dict[str, list[torch.Tensor]] = {}  # tensors whose sums the report subtracts
 _stack: list["_Span"] = []  # the spans open now, innermost last
 _launches: dict[str, int] = {}  # the kernels' running launch counts, never reset
 
@@ -126,12 +130,26 @@ def count(name: str, value) -> None:
     if not on():
         return
     if isinstance(value, torch.Tensor):
-        pending = _pending.setdefault(name, [])
-        pending.append(value)
-        if len(pending) > FOLD_AT:
-            _pending[name] = [_fold(pending)]
+        _keep(_pending, name, value)
     else:
         _counts[name] = _counts.get(name, 0) + int(value)
+
+
+def count_false(name: str, mask: torch.Tensor) -> None:
+    """Add the False entries of the bool device tensor ``mask`` to the
+    counter ``name`` while tracing is on, launching nothing: its size now,
+    less its True entries, which the report sums."""
+    if not on():
+        return
+    _counts[name] = _counts.get(name, 0) + mask.numel()
+    _keep(_less, name, mask)
+
+
+def _keep(store: dict[str, list[torch.Tensor]], name: str, value: torch.Tensor) -> None:
+    pending = store.setdefault(name, [])
+    pending.append(value)
+    if len(pending) > FOLD_AT:
+        store[name] = [_fold(pending)]
 
 
 def launched(name: str, n: int = 1) -> None:
@@ -167,6 +185,7 @@ def reset() -> None:
     _spans.clear()
     _counts.clear()
     _pending.clear()
+    _less.clear()
 
 
 def report() -> dict:
@@ -174,10 +193,11 @@ def report() -> dict:
     ``calls``, ``seconds``, ``self_seconds``, ``parents``) and ``counters``
     (the device tensors summed now, one host read per counter)."""
     counters = dict(_counts)
-    for name, pending in _pending.items():
-        total = _fold(pending)
-        _pending[name] = [total]
-        counters[name] = counters.get(name, 0) + int(total)
+    for store, sign in ((_pending, 1), (_less, -1)):
+        for name, pending in store.items():
+            total = _fold(pending)
+            store[name] = [total]
+            counters[name] = counters.get(name, 0) + sign * int(total)
     counters.update((f"{name}.launches", n) for name, n in _launches.items())
     spans = {name: {"calls": s.calls, "seconds": s.seconds,
                     "self_seconds": s.self_seconds, "parents": sorted(s.parents)}

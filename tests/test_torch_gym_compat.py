@@ -92,6 +92,32 @@ def test_reset_step_protocol():
     assert_step_equal((obs, reward, term, trunc, info), jenv.step(2), "step")
 
 
+def test_single_env_is_the_adapters_core_without_gymnasium():
+    """``single_env.SingleEnv`` imports with gymnasium absent, and its
+    outputs are ``GymEnv``'s on the same seed and actions, with and without
+    ``exact_seed``: ``GymEnv`` is that class under ``gymnasium.Env``."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from minigrid_tpu_torch.single_env import SingleEnv
+
+    code = ("import sys; sys.modules['gymnasium'] = None\n"
+            "from minigrid_tpu_torch.single_env import SingleEnv\n"
+            "assert 'minigrid_tpu_torch.gym_compat' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=Path(__file__).resolve().parents[1])
+    assert issubclass(gc.GymEnv, SingleEnv)
+    for exact in (False, True):
+        core = SingleEnv("MiniGrid-DoorKey-5x5-v0", exact_seed=exact, device=CPU)
+        env = gc.GymEnv("MiniGrid-DoorKey-5x5-v0", exact_seed=exact, device=CPU)
+        assert_obs_equal(core.reset(seed=3)[0], env.reset(seed=3)[0])
+        for t, a in enumerate(np.random.default_rng(3).integers(0, 7, 24)):
+            want, got = env.step(int(a)), core.step(int(a))
+            assert_step_equal(got, want, f"exact {exact} step {t}")
+        assert_obs_equal(core.reset()[0], env.reset()[0])
+
+
 def test_seed_determinism_and_hash_match_jax():
     env1 = gc.GymEnv("MiniGrid-DoorKey-5x5-v0", device=CPU)
     env2 = gc.GymEnv("MiniGrid-DoorKey-5x5-v0", device=CPU)

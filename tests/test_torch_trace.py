@@ -165,6 +165,27 @@ def test_a_device_counter_is_summed_only_when_read(monkeypatch):
     assert _counters() == {"hits": 55}  # reading again reads the same
 
 
+def test_false_entries_are_counted_without_a_launch(monkeypatch):
+    trace.enable()
+    masks = [torch.tensor([True, False, True]), torch.tensor([False, False])]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for m in masks:
+            trace.count_false("misses", m)
+    assert not [e for e in prof.events() if e.name.startswith("aten::")]
+    assert _counters() == {"misses": 1 + 2}
+    monkeypatch.setattr(trace, "FOLD_AT", 4)
+    trace.reset()
+    for i in range(11):
+        trace.count_false("misses", torch.tensor([True, i % 2 == 0, False]))
+    assert len(trace._less["misses"]) <= 4
+    assert _counters() == {"misses": 11 + 5}
+    assert _counters() == {"misses": 16}
+    trace.disable()
+    trace.reset()
+    trace.count_false("misses", torch.tensor([False]))
+    assert _counters() == {}
+
+
 def test_report_carries_the_kernel_launch_counts():
     counters = trace.report()["counters"]
     for name in KERNELS:
